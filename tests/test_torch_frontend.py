@@ -1,0 +1,150 @@
+"""The port's front end (ring projection, LOAM features, voxel filter,
+compaction, process_sweep) against the reference on the same synthetic
+sweeps: the 16-beam indoor rig and the ring-annotated 32-laser rig.
+
+Discrete outputs (ring grid masks and counts, labels, feature masks and
+rings, voxel order) must be EQUAL. Coordinates: 1e-12 in float64 (same
+formulas; XLA and torch differ only in summation order); 1e-5 m in float32.
+Relative times come from atan2, whose float32 implementations differ by an
+ulp or so: 1e-6 s there.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lio_mapping_tpu.config import LioConfig as JCfg, SensorConfig as JSensor
+from lio_mapping_tpu.io import synthetic
+from lio_mapping_tpu.models import point_processor as JPP
+from lio_mapping_tpu.ops import cloud as JC
+from lio_mapping_tpu.ops import features as JF
+from lio_mapping_tpu.ops import ring as JR
+from lio_mapping_tpu.ops import voxel as JV
+from lio_mapping_tpu_torch.config import LioConfig as TCfg, SensorConfig as TSensor
+from lio_mapping_tpu_torch.models import point_processor as TPP
+from lio_mapping_tpu_torch.ops import cloud as TC
+from lio_mapping_tpu_torch.ops import features as TF
+from lio_mapping_tpu_torch.ops import ring as TR
+from lio_mapping_tpu_torch.ops import voxel as TV
+
+DTYPES = [(np.float64, 1e-12, 1e-12), (np.float32, 1e-5, 1e-6)]
+IDS = ["f64", "f32"]
+
+
+@pytest.fixture(scope="module")
+def sweep16():
+    traj = synthetic.Trajectory(pitch_amp=0.4, roll_amp=0.35, rp_freq=0.45)
+    return synthetic.simulate_sweep(traj, 0.3, n_azimuth=540)
+
+
+def _rig(kind):
+    """(torch cfg, jax cfg, ring ids or None) for a rig."""
+    if kind == "vlp16":
+        return TCfg.indoor(), JCfg.indoor()
+    return (dataclasses.replace(TCfg.indoor(), sensor=TSensor.by_type(320)),
+            dataclasses.replace(JCfg.indoor(), sensor=JSensor.by_type(320)))
+
+
+def _uneven_rings(xyz):
+    el = np.degrees(np.arctan2(xyz[:, 2], np.linalg.norm(xyz[:, :2], axis=1)))
+    return np.clip(((el + 25.0) * (31 / 40.0) + 0.5).astype(np.int32), 0, 31)
+
+
+def _eq(t, j):
+    np.testing.assert_array_equal(t.cpu().numpy(), np.asarray(j))
+
+
+def _close(t, j, tol):
+    np.testing.assert_allclose(t.cpu().numpy(), np.asarray(j), atol=tol, rtol=0)
+
+
+def _cloud_close(tc, jc, tol_xyz, tol_t):
+    _eq(tc.mask, jc.mask)
+    _eq(tc.ring, jc.ring)
+    _close(tc.xyz, jc.xyz, tol_xyz)
+    _close(tc.rel_time, jc.rel_time, tol_t)
+
+
+@pytest.mark.parametrize("dtype,tol,tol_t", DTYPES, ids=IDS)
+@pytest.mark.parametrize("rig", ["vlp16", "rs32_uneven"])
+def test_process_sweep_matches(sweep16, rig, dtype, tol, tol_t):
+    xyz, mask = sweep16
+    tcfg, jcfg = _rig(rig)
+    rings = _uneven_rings(xyz) if rig != "vlp16" else None
+    s = tcfg.sensor
+    kw = dict(n_rings=s.n_rings, lower_bound_deg=s.lower_bound_deg,
+              upper_bound_deg=s.upper_bound_deg, max_points_per_ring=s.max_points_per_ring,
+              scan_period=s.scan_period)
+    x = np.asarray(xyz, dtype)
+    t_rings = None if rings is None else torch.as_tensor(rings)
+    j_rings = None if rings is None else jnp.asarray(rings)
+
+    trc, tso = TR.project_to_rings(torch.as_tensor(x), torch.as_tensor(mask),
+                                   ring_ids=t_rings, **kw)
+    jrc, jso = JR.project_to_rings(jnp.asarray(x), jnp.asarray(mask), ring_ids=j_rings, **kw)
+    _eq(trc.mask, jrc.mask)
+    _eq(trc.count, jrc.count)
+    _close(trc.xyz, jrc.xyz, 0.0)  # a pure scatter of the input points
+    _close(trc.rel_time, jrc.rel_time, tol_t)
+    _close(tso, jso, tol_t)
+
+    # labels from the same ring grid
+    grid = jrc.xyz
+    tl, tin = TF._extract_labels(torch.as_tensor(np.array(grid)), torch.as_tensor(
+        np.array(jrc.mask)), torch.as_tensor(np.array(jrc.count)), tcfg.feature)
+    jl, jin = JF._extract_labels(grid, jrc.mask, jrc.count, jcfg.feature)
+    _eq(tl, jl)
+    _eq(tin, jin)
+
+    tf = TPP.process_sweep(torch.as_tensor(x), torch.as_tensor(mask), tcfg, None, t_rings)
+    jf = JPP.process_sweep(jnp.asarray(x), jnp.asarray(mask), jcfg, None, j_rings)
+    for a, b in zip(tf, jf):
+        _cloud_close(a, b, tol, tol_t)
+    assert int(tf.surf_less_flat.mask.sum()) > 500
+    assert int(tf.corner_sharp.mask.sum()) > 10
+
+
+@pytest.mark.parametrize("dtype,tol,_", DTYPES, ids=IDS)
+def test_voxel_centroids_equal_in_order(rng, dtype, tol, _):
+    n = 5000
+    xyz = rng.normal(size=(n, 3)) * 3.0
+    xyz[:50] = xyz[50:100]  # exact duplicates share a voxel
+    xyz[100] = 1e6          # out of range: dropped like PCL's bbox clip
+    mask = rng.random(n) > 0.1
+    aux = rng.uniform(0, 0.1, size=n)
+    x, a = np.asarray(xyz, dtype), np.asarray(aux, dtype)
+    for cap in (4096, 700):  # both roomy and truncating capacities
+        tx, tm, ta = TV.voxel_downsample(torch.as_tensor(x), torch.as_tensor(mask), 0.4, cap,
+                                         aux=torch.as_tensor(a))
+        jx, jm, ja = JV.voxel_downsample(jnp.asarray(x), jnp.asarray(mask), 0.4, cap,
+                                         aux=jnp.asarray(a))
+        _eq(tm, jm)
+        _close(tx, jx, tol)
+        _close(ta, ja, tol)
+    _eq(TV.voxel_keys(torch.as_tensor(x), torch.as_tensor(mask), 0.4),
+        JV.voxel_keys(jnp.asarray(x), jnp.asarray(mask), 0.4))
+    with pytest.raises(NotImplementedError):
+        TV.voxel_downsample(torch.as_tensor(x), torch.as_tensor(mask), 0.4, 10, wide=True)
+
+
+def test_compact_cloud_matches(rng):
+    n = 300
+    xyz = rng.normal(size=(n, 3))
+    c = dict(rel_time=rng.random(n), ring=rng.integers(0, 16, n).astype(np.int32),
+             mask=rng.random(n) > 0.5)
+    tc = TC.Cloud(torch.as_tensor(xyz), torch.as_tensor(c["rel_time"]),
+                  torch.as_tensor(c["ring"]), torch.as_tensor(c["mask"]))
+    jc = JC.Cloud(jnp.asarray(xyz), jnp.asarray(c["rel_time"]), jnp.asarray(c["ring"]),
+                  jnp.asarray(c["mask"]))
+    for cap in (400, 100):
+        _cloud_close(TC.compact_cloud(tc, cap), JC.compact_cloud(jc, cap), 0.0, 0.0)
+    _cloud_close(TC.concat_clouds(tc, tc), JC.concat_clouds(jc, jc), 0.0, 0.0)
+
+
+def test_start_ori_tracker_matches():
+    seq = [0.1 + 0.05 * k for k in range(12)] + [2.5] + [0.75 + 0.05 * k for k in range(12)]
+    t, j = TPP.StartOriTracker(0.2), JPP.StartOriTracker(0.2)
+    assert [t.update(v) for v in seq] == [j.update(v) for v in seq]
