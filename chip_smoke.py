@@ -13,7 +13,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    24576-point voxel-filtered local map, with and without the 1.0 m^2 AABB
    gate) and the scan-to-scan odometry's 1-NN searches (1024 vs 8192 surf,
    512 vs 4096 corner points), on inputs made by the port's own front end
-   from simulated sweeps. Times from CUDA events after warm-up;
+   from simulated sweeps; at the gated shape also the kernel's tile flags
+   against ``prune_flags``. Times from CUDA events after warm-up: the
+   kernel's device work alone, the whole search as the main path calls it,
+   one empty launch in the same loop, the plain version and a library
+   yardstick; after phase 4, each of the search's kernels under
+   ``torch.profiler``;
 4. the main path: ``LioPipeline(LioConfig.indoor(), device="cuda")`` in
    float32 over a simulated 90-sweep indoor sequence (the ``cli simulate``
    defaults), from a cold start through INITED. Fails unless it ends
@@ -66,6 +71,12 @@ GATE = 1.0             # estimator min_match_sq_dis (m^2), the kernel's prune ga
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 FLOP_PER_PAIR = 9      # 3 FMAs for q.p, one add, one FMA: 9 flops
+DEVICE_KERNELS_PER_SEARCH = 2  # bounds, search (csrc/knn.cu; the search merges)
+# the whole search (``wrapper_ms``) of the first version of csrc/knn.cu (one
+# thread per query, prune flags in PyTorch) at these shapes, on an NVIDIA
+# H100 80GB HBM3 at 700 W, printed beside the current one
+ONE_THREAD_PER_QUERY_WRAPPER_MS = {"estimator_5nn": 0.9564, "estimator_5nn_gated": 0.6979,
+                                   "odometry_surf_1nn": 0.1635, "odometry_corner_1nn": 0.0848}
 F32_EPS = float(np.finfo(np.float32).eps)
 
 
@@ -136,20 +147,48 @@ def knn_cases(traj, cfg):
     ]
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls, after
-    warm-up (CUDA events)."""
+def timed(fn, reps: int = 20):
+    """(ms, host_ms) of ``fn`` over ``reps`` back-to-back calls, after
+    warm-up: CUDA events around the loop, and the host clock until the
+    last call returned (what the host takes to enqueue one call)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host_ms = 1e3 * (time.perf_counter() - t0) / reps
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host_ms
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """Mean time of ``fn`` over ``reps`` back-to-back calls (CUDA events)."""
+    return timed(fn, reps)[0]
+
+
+def device_kernel_ms(fn, reps: int = 10):
+    """Mean device time per call of each CUDA kernel ``fn`` launches
+    (torch.profiler), by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            name = evt.name.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0]
+            out[name] = out.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3 / reps
+    return out
 
 
 def library_knn(q, qm, db, dbm, k):
@@ -163,9 +202,15 @@ def library_knn(q, qm, db, dbm, k):
 def check_case(name, q, qm, db, dbm, k, gate):
     """Kernel against the plain version on one input; returns the row of
     the kernel table for this shape."""
-    got_d, got_i = knn_kernel.knn_cuda(q, qm, db, dbm, k=k, prune_beyond=gate)
+    got_d, got_i, flags = knn_kernel.search(q, qm, db, dbm, k=k, prune_beyond=gate)
     ref_d, ref_i = KNN.knn_tiled(q, qm, db, dbm, k=k)
     torch.cuda.synchronize()
+    flags = flags.cpu().numpy()
+    if gate is not None:
+        want = knn_kernel.prune_flags(q, qm, db, dbm, gate).cpu().numpy()
+        if not np.array_equal(flags, want):
+            raise AssertionError(f"{name}: the kernel's tile flags differ from prune_flags "
+                                 f"({int(np.sum(flags != want))} of {flags.size})")
     got_d, got_i = got_d.cpu().numpy(), got_i.cpu().numpy().astype(np.int64)
     ref_d, ref_i = ref_d.cpu().numpy(), ref_i.cpu().numpy().astype(np.int64)
     qn, dn = q.cpu().numpy().astype(np.float64), db.cpu().numpy().astype(np.float64)
@@ -200,24 +245,36 @@ def check_case(name, q, qm, db, dbm, k, gate):
         raise AssertionError(f"{name}: neighbour sets differ ({idx_err:.3e} > {2 * tol:.3e})")
     same_idx = float(np.mean(np.all(got_i[rows] == ref_i[rows], axis=1))) if rows.any() else 1.0
 
-    # timings: the raw kernel (prune flags made once), the wrapper, the plain
-    # version, and the library yardstick
+    # timings: the kernel's device work (buffers made once), the wrapper, an
+    # empty launch, the plain version, and the library yardstick
     lib = knn_kernel._load()
     q_n, m_n = q.shape[0], db.shape[0]
-    prune = None if gate is None else knn_kernel.prune_flags(q, qm, db, dbm, gate)
+    n_qb, n_ch = flags.shape
     out_d = torch.empty((q_n, k), dtype=torch.float32, device=DEV)
     out_i = torch.empty((q_n, k), dtype=torch.int32, device=DEV)
+    n_scratch = knn_kernel.scratch_bytes(q_n, m_n, k)
+    if n_scratch != lib.lio_knn_scratch_bytes(q_n, m_n, k):
+        raise AssertionError(f"{name}: scratch size differs between the wrapper and knn.cu")
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=DEV)
     stream = torch.cuda.current_stream().cuda_stream
+    gate_f = math.inf if gate is None else gate
 
     def raw():
-        err_code = lib.lio_knn_f32(q.data_ptr(), db.data_ptr(), dbm.data_ptr(),
-                                   None if prune is None else prune.data_ptr(), q_n, m_n, k,
-                                   out_d.data_ptr(), out_i.data_ptr(), stream)
+        err_code = lib.lio_knn_f32(q.data_ptr(), qm.data_ptr(), db.data_ptr(), dbm.data_ptr(),
+                                   q_n, m_n, k, gate_f, out_d.data_ptr(), out_i.data_ptr(),
+                                   scratch.data_ptr(), n_scratch, stream)
         if err_code:
             raise RuntimeError(f"{name}: kernel launch failed, cudaError {err_code}")
 
-    ms = cuda_ms(raw)
-    wrapper_ms = cuda_ms(lambda: knn_kernel.knn_cuda(q, qm, db, dbm, k=k, prune_beyond=gate))
+    def noop():
+        err_code = lib.lio_noop(stream)
+        if err_code:
+            raise RuntimeError(f"empty launch failed, cudaError {err_code}")
+
+    ms, raw_host_ms = timed(raw)
+    empty_launch_ms = cuda_ms(noop)
+    wrapper_ms, wrapper_host_ms = timed(
+        lambda: knn_kernel.knn_cuda(q, qm, db, dbm, k=k, prune_beyond=gate))
     plain_ms = cuda_ms(lambda: KNN.knn_tiled(q, qm, db, dbm, k=k), reps=5)
     library_ms = cuda_ms(lambda: library_knn(q, qm, db, dbm, k), reps=5)
 
@@ -229,9 +286,19 @@ def check_case(name, q, qm, db, dbm, k, gate):
     cb[:m_n] = dmn
     per_qb = qb.reshape(-1, knn_kernel.BQ).sum(1).astype(np.float64)
     per_cb = cb.reshape(-1, knn_kernel.BM).sum(1).astype(np.float64)
-    keep = np.ones((per_qb.size, per_cb.size)) if prune is None \
-        else 1.0 - prune.cpu().numpy().astype(np.float64)
+    # flagged tiles: pruned by the gate, or without a valid pair
+    keep = 1.0 - flags.astype(np.float64)
     pairs = float(per_qb @ keep @ per_cb)
+    # CTAs: bounds (one per block and chunk), search (one per 32-query group
+    # and chunk; those of a kept tile with a live query search, and one per
+    # group merges)
+    n_groups = -(-q_n // knn_kernel.QPC)
+    qg = np.zeros(n_groups * knn_kernel.QPC, bool)
+    qg[:q_n] = qmn
+    live_group = qg.reshape(n_groups, knn_kernel.QPC).any(1)
+    kept = ~flags.astype(bool)[np.arange(n_groups) * knn_kernel.QPC // knn_kernel.BQ]
+    ctas = {"bounds": n_qb + n_ch, "search": n_groups * n_ch,
+            "search_working": int((kept & live_group[:, None]).sum()), "merging": n_groups}
     flops = FLOP_PER_PAIR * pairs
     n_bytes = q_n * (12 + 1) + m_n * (12 + 1) + q_n * k * 8
     t_ops, t_bytes = flops / PEAK_F32_FLOP_S, n_bytes / PEAK_BYTES_S
@@ -240,12 +307,17 @@ def check_case(name, q, qm, db, dbm, k, gate):
         "valid_q": int(qmn.sum()), "valid_m": int(dmn.sum()),
         "pairs": pairs, "max_abs_err": err, "tol": tol, "idx_dist_err": idx_err,
         "rows_checked": int(rows.sum()), "same_idx_rows": same_idx,
-        "kernel_ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        "tiles_skipped": int(flags.sum()), "tiles": int(flags.size), "ctas": ctas,
+        "device_kernels_per_search": DEVICE_KERNELS_PER_SEARCH,
+        "kernel_ms": ms, "kernel_host_ms": raw_host_ms, "wrapper_ms": wrapper_ms,
+        "wrapper_host_ms": wrapper_host_ms,
+        "one_thread_per_query_wrapper_ms": ONE_THREAD_PER_QUERY_WRAPPER_MS.get(name),
+        "empty_launch_ms": empty_launch_ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
     log("knn_check " + json.dumps(row))
-    return row
+    return row, raw
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +530,8 @@ def main():
 
     traj = sim_trajectory()
     cfg = LioConfig.indoor()
-    rows = [check_case(*c) for c in knn_cases(traj, cfg)]
+    checked = [check_case(*c) for c in knn_cases(traj, cfg)]
+    rows = [row for row, _ in checked]
     max_err = max(r["max_abs_err"] for r in rows)
 
     t0 = time.perf_counter()
@@ -466,14 +539,21 @@ def main():
     log(f"simulated {len(seq)} sweeps in {time.perf_counter() - t0:.1f} s")
     summary, launches = main_path(seq, traj)
 
-    # ms: the kernel alone; wrapper_ms: the whole search on the main path,
-    # the prune flags included
+    # the device time of each of the search's kernels, under torch.profiler
+    # (after every timed run: the profiler may slow later host work)
+    for (row, raw) in checked:
+        by_kernel = device_kernel_ms(raw)
+        log("knn_device " + json.dumps({"case": row["case"], "device_ms_by_kernel": by_kernel,
+                                        "device_ms": sum(by_kernel.values())}))
+
+    # ms: the kernel's device work (bounds, search); wrapper_ms: the
+    # whole search as the main path calls it
     main_row = next(r for r in rows if r["case"] == "estimator_5nn_gated")
     kernels = [{
         "name": "knn", "route": "cuda", "source": "lio_mapping_tpu_torch/csrc/knn.cu",
         "replaces": "lio_mapping_tpu/ops/pallas/knn_kernel.py:167",
         "launches": launches, "max_abs_err": max_err, "ms": main_row["kernel_ms"],
-        "wrapper_ms": main_row["wrapper_ms"],
+        "wrapper_ms": main_row["wrapper_ms"], "empty_launch_ms": main_row["empty_launch_ms"],
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
     }]

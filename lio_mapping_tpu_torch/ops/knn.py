@@ -5,7 +5,9 @@ Contract (pinned by tests/test_torch_knn.py, and held by the CUDA kernel):
 * squared distances ``|q|^2 + |p|^2 - 2 q.p``, clamped at 0, ascending;
 * ties go to the lowest map index;
 * rows with fewer than k valid map points get +inf and index 0 in the tail;
-* masked queries get +inf distances.
+* masked queries get +inf distances; their indices are unspecified (the
+  kernel skips them and writes 0, the plain version searches them), so
+  callers read a masked row only through its mask.
 
 This follows the reference's tiled path (the CPU oracle), which clamps at
 0; its Pallas kernel does not clamp.

@@ -118,3 +118,116 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         TKK.knn_cuda(args[0].t().contiguous().t(), *args[1:], k=5)
     with pytest.raises(ValueError):
         TKK.knn_cuda(args[0], args[1], args[2].cpu(), args[3].cpu(), k=5)
+
+
+def _grid(rng, n_q, n_m):
+    """Coordinates on a 0.25 m grid within 3 m: float32 evaluates every
+    distance exactly, so exact ties abound (across chunk and sub-range
+    boundaries) and the kernel and a float64 reference agree bit for bit.
+    Spatially sorted, with an empty chunk when there are two or more, so
+    the gate prunes and empty tiles occur."""
+    db = (rng.integers(-12, 13, size=(n_m, 3)) * 0.25).astype(np.float32)
+    db = db[np.argsort(db[:, 0], kind="stable")]
+    dm = rng.random(n_m) > 0.05
+    if n_m > 2 * TKK.BM:
+        dm[TKK.BM:2 * TKK.BM] = False
+    q = (rng.integers(-12, 13, size=(n_q, 3)) * 0.25).astype(np.float32)
+    q = q[np.argsort(q[:, 0], kind="stable")]
+    qm = rng.random(n_q) > 0.1
+    return q, qm, db, dm
+
+
+def _exact_reference(q, qm, db, dm, k, flags):
+    """float64 distances (exact on the grid), the tiles in ``flags``
+    skipped, the k smallest by (distance, index); +inf / 0 past the valid
+    points and on masked rows."""
+    q64, db64 = q.astype(np.float64), db.astype(np.float64)
+    d = np.sum((q64[:, None] - db64[None]) ** 2, axis=-1)
+    d[:, ~dm] = np.inf
+    for b, c in zip(*np.nonzero(flags)):
+        d[b * TKK.BQ:(b + 1) * TKK.BQ, c * TKK.BM:(c + 1) * TKK.BM] = np.inf
+    idx = np.argsort(d, axis=1, kind="stable")[:, :k]
+    dist = np.take_along_axis(d, idx, axis=1)
+    if dist.shape[1] < k:
+        pad = k - dist.shape[1]
+        dist = np.concatenate([dist, np.full((len(q), pad), np.inf)], axis=1)
+        idx = np.concatenate([idx, np.zeros((len(q), pad), np.int64)], axis=1)
+    idx[np.isinf(dist)] = 0
+    dist[~qm], idx[~qm] = np.inf, 0
+    return dist.astype(np.float32), idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [None, 1.0], ids=["exact", "gated"])
+def test_kernel_flags_equal_prune_flags(dev, gate):
+    """The kernel's tile flags: with a gate exactly ``prune_flags``, without
+    one exactly the tiles with no valid query or no valid map point."""
+    for seed, (n_q, n_m) in enumerate([(700, 9000), (1000, 3 * TKK.BM + 300)]):
+        q, qm, db, dm = _clustered(np.random.default_rng(seed), n_m=n_m, n_q=n_q)
+        qm[TKK.BQ:2 * TKK.BQ] = False
+        args = [torch.as_tensor(x).to(dev) for x in (q, qm, db, dm)]
+        _, _, flags = TKK.search(*args, k=5, prune_beyond=gate)
+        flags = flags.cpu().numpy().astype(bool)
+        if gate is None:
+            q_empty = ~np.pad(qm, (0, flags.shape[0] * TKK.BQ - n_q)).reshape(-1, TKK.BQ).any(1)
+            c_empty = ~np.pad(dm, (0, flags.shape[1] * TKK.BM - n_m)).reshape(-1, TKK.BM).any(1)
+            np.testing.assert_array_equal(flags, q_empty[:, None] | c_empty[None, :])
+        else:
+            want = TKK.prune_flags(*args, gate).cpu().numpy().astype(bool)
+            np.testing.assert_array_equal(flags, want)
+            assert flags.any() and not flags.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [None, 1.0], ids=["exact", "gated"])
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_kernel_ties_across_boundaries_bit_equal(dev, k, gate):
+    """On grid coordinates (exact ties everywhere, across chunk and
+    sub-range boundaries) the kernel returns exactly the k smallest
+    (distance, index) pairs of the tiles it keeps: the lowest index wins."""
+    q, qm, db, dm = _grid(np.random.default_rng(10 + k), n_q=600, n_m=3 * TKK.BM + 300)
+    db[2 * TKK.BM + 7] = db[11]  # one more duplicate straddling chunks 0 and 2
+    args = [torch.as_tensor(x).to(dev) for x in (q, qm, db, dm)]
+    gd, gi, flags = (x.cpu().numpy() for x in TKK.search(*args, k=k, prune_beyond=gate))
+    rd, ri = _exact_reference(q, qm, db, dm, k, flags.astype(bool))
+    np.testing.assert_array_equal(gd[qm], rd[qm])
+    np.testing.assert_array_equal(gi[qm], ri[qm])
+    assert np.isinf(gd[~qm]).all() and (gi[~qm] == 0).all()
+    if gate is not None:
+        assert flags[:, 1].all() and not flags.all()
+    fin = np.isfinite(rd[qm])
+    assert k == 1 or np.any((np.diff(rd[qm], axis=1) == 0) & fin[:, 1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2 * TKK.BM + 77), (300, 5), (257, 2049)],
+                         ids=["q1", "m5", "ragged"])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_kernel_k_and_ragged_shapes(dev, k, shape):
+    """Every k the kernel takes, at one query, at fewer map points than k
+    and at ragged edges, against the plain version."""
+    n_q, n_m = shape
+    q, qm, db, dm = _clustered(np.random.default_rng(100 + k), n_m=n_m, n_q=n_q)
+    qm[0] = True
+    args = [torch.as_tensor(x).to(dev) for x in (q, qm, db, dm)]
+    gd, gi = (x.cpu().numpy() for x in TK.knn(*args, k=k))
+    rd, ri = (x.cpu().numpy() for x in TK.knn_tiled(*args, k=k))
+    tol = _tol(q, db)
+    np.testing.assert_array_equal(np.isfinite(gd), np.isfinite(rd))
+    fin = np.isfinite(rd)
+    np.testing.assert_allclose(gd[fin], rd[fin], atol=tol, rtol=0)
+    np.testing.assert_allclose(_d64(q, db, gi)[fin], _d64(q, db, ri)[fin], atol=2 * tol, rtol=0)
+    assert (gi[qm][~fin[qm]] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [None, 1.0], ids=["exact", "gated"])
+def test_kernel_is_deterministic(dev, gate):
+    """Two calls on the same inputs give the same bits (no atomics on
+    distances, a fixed merge order)."""
+    q, qm, db, dm = _clustered(np.random.default_rng(7), n_m=9000, n_q=700)
+    args = [torch.as_tensor(x).to(dev) for x in (q, qm, db, dm)]
+    a = [x.cpu().numpy() for x in TKK.search(*args, k=5, prune_beyond=gate)]
+    b = [x.cpu().numpy() for x in TKK.search(*args, k=5, prune_beyond=gate)]
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.view(np.uint8), y.view(np.uint8))

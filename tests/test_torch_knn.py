@@ -11,6 +11,8 @@ kernel test uses 1e-3). Indices are compared exactly where distances have
 no ties, and tie-robustly (the chosen points' float64 distances) otherwise.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -89,13 +91,17 @@ def _clustered(rng, n_m=5000, n_q=600):
     return q, qm, db, dm
 
 
-def _emulate_kernel(q, qm, db, dm, k, prune):
+def _emulate_kernel(q, qm, db, dm, k, prune, d=None):
     """What ``csrc/knn.cu`` computes, in numpy: per 256-query block, the
-    chunks the prune flags keep, ascending index, lowest index on ties."""
-    d = np.sum(q.astype(np.float64)[:, None] ** 2, -1) + np.sum(
-        db.astype(np.float64) ** 2, -1)[None] - 2.0 * q.astype(np.float64) @ db.T.astype(
-        np.float64)
-    d = np.maximum(d, 0.0)
+    chunks the prune flags keep, ascending index, lowest index on ties.
+    ``d``: the (Q, M) squared distances to use (default: float64 here)."""
+    if d is None:
+        d = np.sum(q.astype(np.float64)[:, None] ** 2, -1) + np.sum(
+            db.astype(np.float64) ** 2, -1)[None] - 2.0 * q.astype(np.float64) @ db.T.astype(
+            np.float64)
+        d = np.maximum(d, 0.0)
+    else:
+        d = d.copy()
     d[:, ~dm] = np.inf
     for b in range(prune.shape[0]):
         for c in range(prune.shape[1]):
@@ -106,6 +112,180 @@ def _emulate_kernel(q, qm, db, dm, k, prune):
     idx[np.isinf(dist)] = 0
     dist[~qm] = np.inf
     return dist, idx
+
+
+def test_geometry_constants_match_the_cuda_source():
+    """The wrapper's geometry (prune block, chunk, lanes per query, queries
+    per CTA, bounds record) is the one ``csrc/knn.cu`` compiles with."""
+    import re
+
+    src = (Path(TKK.__file__).resolve().parent.parent / "csrc" / "knn.cu").read_text()
+    got = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    want = {"kBQ": TKK.BQ, "kBM": TKK.BM, "kTPQ": TKK.TPQ, "kQPC": TKK.QPC, "kBatch": TKK.BATCH}
+    assert {name: got.get(name) for name in want} == want
+    assert f"sizeof(Bounds) == {TKK.BOUNDS_BYTES}" in src
+    assert TKK.BQ % TKK.QPC == 0 and 32 % TKK.TPQ == 0
+    # the scratch holds bounds, the packed map and the per-chunk lists
+    n_qb, n_ch = 3, 4
+    assert TKK.scratch_bytes(3 * 256 - 40, 3 * 2048 + 300, 5) >= (
+        (n_qb + n_ch) * TKK.BOUNDS_BYTES + (3 * 2048 + 300) * 16
+        + 2 * n_ch * 5 * (3 * 256 - 40) * 4)
+
+
+def _insert(bd, bi, dv, iv):
+    """The kernel's strict-< insert, one candidate per row into ascending
+    (R, K) lists: it lands after every entry <= it, and past K it drops."""
+    k = bd.shape[1]
+    pos = np.sum(bd <= dv[:, None], axis=1)
+    cols = np.arange(k)[None, :]
+    src = np.maximum(np.where(cols < pos[:, None], cols, cols - 1), 0)
+    at = cols == pos[:, None]
+    nd = np.where(at, dv[:, None], np.take_along_axis(bd, src, 1))
+    ni = np.where(at, iv[:, None], np.take_along_axis(bi, src, 1))
+    return nd, ni
+
+
+def _merge_lanes(sd, si):
+    """The kernel's shuffle rounds over (TPQ, R, K) lane lists: in round m,
+    lane s (s a multiple of 2m) inserts lane s + m's list; lane 0 ends with
+    the merge."""
+    sd, si = sd.copy(), si.copy()
+    m = 1
+    while m < TKK.TPQ:
+        for s in range(0, TKK.TPQ, 2 * m):
+            for j in range(sd.shape[2]):
+                sd[s], si[s] = _insert(sd[s], si[s], sd[s + m][:, j], si[s + m][:, j])
+        m *= 2
+    return sd[0], si[0]
+
+
+def _emulate_decomposition(d, q, qm, db, dm, k, gate):
+    """The kernel's decomposition in numpy: bounds and flags per (256-query
+    block, 2048-point chunk), empty tiles skipped; per kept tile the chunk's
+    valid extent cut into TPQ contiguous sub-ranges of whole BATCH-point
+    batches, each scanned in index order with the strict-< insert; the sub-range lists merged as the
+    shuffle rounds pair them (lane s inserts lane s + m's list); then the
+    chunk lists merged the same way, each lane over a contiguous run of
+    chunks, flagged chunks skipped. (The kernel's exchange of k-th bests
+    only spares inserts that change no list, so it is not emulated.)
+    Returns (dist, idx, flags)."""
+    n_q, n_m = d.shape
+    n_qb, n_ch = -(-n_q // TKK.BQ), -(-n_m // TKK.BM)
+    d = np.where(dm[None, :], d, np.inf)
+
+    def bounds(pts, valid, lo_i):
+        v = pts[valid]
+        return (v.min(0) if len(v) else None, v.max(0) if len(v) else None,
+                lo_i + np.flatnonzero(valid))
+
+    qb = [bounds(q[b * TKK.BQ:(b + 1) * TKK.BQ], qm[b * TKK.BQ:(b + 1) * TKK.BQ], b * TKK.BQ)
+          for b in range(n_qb)]
+    cb = [bounds(db[c * TKK.BM:(c + 1) * TKK.BM], dm[c * TKK.BM:(c + 1) * TKK.BM], c * TKK.BM)
+          for c in range(n_ch)]
+    flags = np.zeros((n_qb, n_ch), bool)
+    for b in range(n_qb):
+        for c in range(n_ch):
+            if not len(qb[b][2]) or not len(cb[c][2]):
+                flags[b, c] = True
+                continue
+            g = np.maximum(0, np.maximum(qb[b][0] - cb[c][1], cb[c][0] - qb[b][1]))
+            g2 = (g * g).astype(np.float32)
+            lb = np.float32(np.float32(g2[0] + g2[2]) + g2[1])
+            flags[b, c] = not lb <= np.float32(gate if gate is not None else np.inf)
+
+    out_d = np.full((n_q, k), np.inf)
+    out_i = np.zeros((n_q, k), np.int64)
+    for b in range(n_qb):
+        rows = np.arange(b * TKK.BQ, min((b + 1) * TKK.BQ, n_q))
+        part_d, part_i = {}, {}
+        for c in range(n_ch):
+            if flags[b, c]:
+                continue
+            first, last = cb[c][2][0], cb[c][2][-1]
+            n = last + 1 - first
+            length = -(-(-(-n // TKK.TPQ)) // TKK.BATCH) * TKK.BATCH
+            sd = np.full((TKK.TPQ, len(rows), k), np.inf)
+            si = np.zeros((TKK.TPQ, len(rows), k), np.int64)
+            for t in range(length):
+                m = first + np.arange(TKK.TPQ) * length + t  # one point per sub-range
+                ok = m <= last
+                dv = np.where(ok[:, None], d[rows][:, np.minimum(m, n_m - 1)].T, np.inf)
+                nd, ni = _insert(sd.reshape(-1, k), si.reshape(-1, k), dv.reshape(-1),
+                                 np.repeat(m, len(rows)))
+                sd, si = nd.reshape(sd.shape), ni.reshape(si.shape)
+            part_d[c], part_i[c] = _merge_lanes(sd, si)
+        # the merge: lane s inserts the lists of a contiguous run of chunks,
+        # ascending, flagged ones skipped; then the lanes merge as above
+        per_lane = -(-n_ch // TKK.TPQ)
+        md = np.full((TKK.TPQ, len(rows), k), np.inf)
+        mi = np.zeros((TKK.TPQ, len(rows), k), np.int64)
+        for s in range(TKK.TPQ):
+            for c in range(s * per_lane, min(n_ch, (s + 1) * per_lane)):
+                if flags[b, c]:
+                    continue
+                for j in range(k):
+                    md[s], mi[s] = _insert(md[s], mi[s], part_d[c][:, j], part_i[c][:, j])
+        out_d[rows], out_i[rows] = _merge_lanes(md, mi)
+    out_d[~qm] = np.inf
+    out_i[~qm] = 0
+    return out_d, out_i, flags
+
+
+def _tie_heavy(rng):
+    """Coordinates on a 0.25 m grid (exact ties everywhere, across chunk and
+    sub-range boundaries), spatially sorted so the gate prunes; three query
+    blocks with a ragged end and an all-masked middle block; four chunks
+    with an empty one, a ragged last one and masked runs at a chunk's ends
+    (so the valid extent is cut)."""
+    n_q, n_m = 3 * TKK.BQ - 40, 3 * TKK.BM + 300
+    db = rng.integers(-12, 13, size=(n_m, 3)).astype(np.float64) * 0.25
+    db = db[np.argsort(db[:, 0], kind="stable")]
+    db[2 * TKK.BM + 7] = db[11]          # a duplicate straddling chunks 0 and 2
+    db[2 * TKK.BM + 300] = db[2 * TKK.BM + 1500]   # and one across sub-ranges
+    dm = rng.random(n_m) > 0.05
+    dm[TKK.BM:2 * TKK.BM] = False        # chunk 1 empty
+    dm[2 * TKK.BM:2 * TKK.BM + 5] = False
+    dm[3 * TKK.BM - 200:3 * TKK.BM] = False
+    q = rng.integers(-12, 13, size=(n_q, 3)).astype(np.float64) * 0.25
+    q = q[np.argsort(q[:, 0], kind="stable")]
+    q[5] = db[11]
+    qm = rng.random(n_q) > 0.1
+    qm[TKK.BQ:2 * TKK.BQ] = False        # query block 1 all masked
+    return q, qm, db, dm
+
+
+@pytest.mark.parametrize("gate", [None, 1.0], ids=["exact", "gated"])
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_kernel_decomposition_is_bit_equal(rng, k, gate):
+    """The kernel's cut (bounds and flags with empty tiles skipped, the
+    per-sub-range lists, the ordered merges) returns exactly what one
+    thread per query walking every kept chunk in index order returns, on
+    every unmasked row: distances and indices, ties included."""
+    q, qm, db, dm = _tie_heavy(rng)
+    # elementwise float64 distances: identical points give identical values
+    d = np.maximum((q * q).sum(1)[:, None] + (db * db).sum(1)[None, :] - 2.0 * (
+        q[:, None, 0] * db[None, :, 0] + q[:, None, 1] * db[None, :, 1]
+        + q[:, None, 2] * db[None, :, 2]), 0.0)
+    got_d, got_i, flags = _emulate_decomposition(d, q, qm, db, dm, k, gate)
+    q_empty = ~np.pad(qm, (0, flags.shape[0] * TKK.BQ - len(qm))).reshape(-1, TKK.BQ).any(1)
+    c_empty = ~np.pad(dm, (0, flags.shape[1] * TKK.BM - len(dm))).reshape(-1, TKK.BM).any(1)
+    empty = q_empty[:, None] | c_empty[None, :]
+    assert q_empty[1] and c_empty[1]
+    if gate is None:
+        np.testing.assert_array_equal(flags, empty)
+        want_d, want_i = _emulate_kernel(q, qm, db, dm, k, np.zeros_like(flags), d=d)
+    else:
+        plain = _np(TKK.prune_flags(_t(q.astype(np.float32)), _t(qm), _t(db.astype(np.float32)),
+                                    _t(dm), gate)).astype(bool)
+        np.testing.assert_array_equal(flags, plain)
+        assert (flags & ~empty).any() and not flags.all()
+        want_d, want_i = _emulate_kernel(q, qm, db, dm, k, flags, d=d)
+    np.testing.assert_array_equal(got_d[qm], want_d[qm])
+    np.testing.assert_array_equal(got_i[qm], want_i[qm])
+    assert np.isinf(got_d[~qm]).all() and (got_i[~qm] == 0).all()
+    # the data does hold ties the merges had to order
+    fin = np.isfinite(want_d[qm])
+    assert k == 1 or np.any((np.diff(want_d[qm], axis=1) == 0) & fin[:, 1:])
 
 
 def test_prune_flags_and_gated_exactness(rng):
