@@ -8,24 +8,37 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 1. device: the card's name and power limit;
 2. build: ``csrc/knn.cu`` compiled with ``nvcc`` for ``sm_90a`` from the
    sources in this checkout (plus ``ptxas``'s register report);
-3. kernel vs plain version on the card, at the shapes the main path gives
+3. kernel vs plain version on the card, at the shapes the main paths give
    the KNN: the estimator's 5-NN plane search (6144 queries against a
    24576-point voxel-filtered local map, with and without the 1.0 m^2 AABB
-   gate) and the scan-to-scan odometry's 1-NN searches (1024 vs 8192 surf,
-   512 vs 4096 corner points), on inputs made by the port's own front end
-   from simulated sweeps; at the gated shape also the kernel's tile flags
-   against ``prune_flags``. Times from CUDA events after warm-up: the
-   kernel's device work alone, the whole search as the main path calls it,
-   one empty launch in the same loop, the plain version and a library
-   yardstick; after phase 4, each of the search's kernels under
-   ``torch.profiler``;
+   gate), the scan-to-scan odometry's 1-NN searches (1024 vs 8192 surf,
+   512 vs 4096 corner points) and LOAM's scan-to-map surf search (6144
+   queries against the 65536-point map store, gated), on inputs made by the
+   port's own front end and ``insert_into_map`` from simulated sweeps; at
+   the gated shapes also the kernel's tile flags against ``prune_flags``.
+   Times from CUDA events after warm-up: the kernel's device work alone,
+   the whole search as the main path calls it, one empty launch in the
+   same loop, the plain version and a library yardstick; the scan-to-map
+   corner search (2048 x 65536, pinned to the plain version) is timed too.
+   After phase 7, each of the search's kernels under ``torch.profiler``;
 4. the main path: ``LioPipeline(LioConfig.indoor(), device="cuda")`` in
    float32 over a simulated 90-sweep indoor sequence (the ``cli simulate``
    defaults), from a cold start through INITED. Fails unless it ends
    INITED with ATE RMSE <= 0.35 m and the KNN kernel ran on the INITED
    sweeps. Then a few more sweeps (a consumed and a skipped one each)
    under ``torch.profiler``, under the CUDA sync-debug mode and under
-   per-stage timers count kernel launches, host syncs and stage times.
+   per-stage timers count kernel launches, host syncs and stage times;
+5. the CLI in lio mode, each step a subprocess of ``python -m
+   lio_mapping_tpu_torch.cli`` in a temporary directory: ``simulate`` 90
+   sweeps, ``run --profile indoor`` with ``--map-out`` and
+   ``--stats-json``, ``evaluate``. Fails unless the run ends INITED with
+   ATE RMSE <= 0.35 m, a non-empty map and 89 pairs;
+6. ``run --two-phase --timing`` on the same log: the same poses as phase 5
+   (within 1e-4 m, |q.q'| > 1 - 1e-6), the same map voxel count, and the
+   kernel launched in phase B;
+7. ``run --mode loam`` on the same log, in this process so that the
+   kernel's launches are counted by path, then ``evaluate``. Fails above
+   0.05 m ATE RMSE or if the kernel did not run in the scan-to-map search.
 
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -34,11 +47,15 @@ package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -48,15 +65,21 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available; this script needs one NVIDIA GPU")
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
+from lio_mapping_tpu_torch import cli  # noqa: E402
 from lio_mapping_tpu_torch.config import LioConfig  # noqa: E402
 from lio_mapping_tpu_torch.io import evaluation, synthetic  # noqa: E402
+from lio_mapping_tpu_torch.models import estimator as EST  # noqa: E402
+from lio_mapping_tpu_torch.models import mapping as MAP  # noqa: E402
+from lio_mapping_tpu_torch.models import odometry as ODO  # noqa: E402
 from lio_mapping_tpu_torch.models.pipeline import LioPipeline  # noqa: E402
 from lio_mapping_tpu_torch.models.point_processor import process_sweep  # noqa: E402
 from lio_mapping_tpu_torch.ops import knn as KNN  # noqa: E402
 from lio_mapping_tpu_torch.ops import knn_kernel  # noqa: E402
 from lio_mapping_tpu_torch.ops import voxel as VX  # noqa: E402
+from lio_mapping_tpu_torch.utils.se3 import Pose  # noqa: E402
 
 DEV = torch.device("cuda")
 SEED = 0
@@ -65,6 +88,7 @@ N_EXTRA = 6            # sweeps after the main run: launches, syncs, stage times
 SCAN_DT = 0.1
 IMU_RATE = 200.0
 ATE_LIMIT = 0.35       # m: twice the reference's 0.1765 m on this sequence
+LOAM_ATE_LIMIT = 0.05  # m: 2.4x the reference's 0.021 m (LOAM) on this sequence
 GATE = 1.0             # estimator min_match_sq_dis (m^2), the kernel's prune gate
 # H100 SXM data-sheet peaks (at 700 W): HBM rate, f32 rate outside the
 # tensor cores
@@ -93,30 +117,30 @@ def sim_trajectory():
 # ---------------------------------------------------------------------------
 
 
-def _laser_pose_t(q_wxyz, p):
+def knn_cases(traj, cfg):
+    """Main-path KNN inputs, made by the port's front end, voxel filter and
+    map store: ([(name, queries, q_mask, db, db_mask, k, prune_beyond)],
+    the scan-to-map corner search's (queries, q_mask, db, db_mask)), on the
+    card."""
     from scipy.spatial.transform import Rotation
 
-    return Rotation.from_quat(np.roll(q_wxyz, -1)), p
-
-
-def knn_cases(traj, cfg):
-    """Main-path KNN inputs, made by the port's front end and voxel filter:
-    (name, queries, q_mask, db, db_mask, k, prune_beyond) on the card."""
-    e = cfg.estimator
+    e, m = cfg.estimator, cfg.mapping
     feats = []
     for i in range(13):
         t0 = 0.5 + 2 * SCAN_DT * i  # the odom_io=2 cadence of consumed sweeps
         xyz, mask = synthetic.simulate_sweep(traj, t0, n_azimuth=900)
         f = process_sweep(torch.as_tensor(xyz[:, :3], dtype=torch.float32, device=DEV),
                           torch.as_tensor(mask, device=DEV), cfg)
-        rot, p = _laser_pose_t(*synthetic.gt_sensor_pose(traj, t0 + SCAN_DT))
-        feats.append((f, rot, p))
+        q, p = synthetic.gt_sensor_pose(traj, t0 + SCAN_DT)
+        feats.append((f, Rotation.from_quat(np.roll(q, -1)), p,
+                      Pose(torch.as_tensor(q, dtype=torch.float32, device=DEV),
+                           torch.as_tensor(p, dtype=torch.float32, device=DEV))))
 
     # estimator: 12 voxel-filtered surf stacks moved into one frame and
     # voxel-filtered again (as models/estimator.local_map builds it), and
     # the newest stack at a slightly wrong pose as the queries
     stacks = []
-    for f, rot, p in feats:
+    for f, rot, p, _ in feats:
         sx, sm, _ = VX.voxel_downsample(f.surf_less_flat.xyz, f.surf_less_flat.mask,
                                         e.surf_filter_size, e.surf_stack_cap)
         r = torch.as_tensor(rot.as_matrix(), dtype=torch.float32, device=DEV)
@@ -127,15 +151,31 @@ def knn_cases(traj, cfg):
         e.surf_filter_size, e.local_map_filtered_cap)
     rng = np.random.default_rng(SEED)
     ang = rng.normal(size=3) * math.radians(0.5)
-    from scipy.spatial.transform import Rotation
-
     dr = torch.as_tensor(Rotation.from_rotvec(ang).as_matrix(), dtype=torch.float32, device=DEV)
     dt = torch.as_tensor(rng.normal(size=3) * 0.03, dtype=torch.float32, device=DEV)
     q_xyz = (stacks[-1][0] @ dr.T + dt).contiguous()
     q_mask = stacks[-1][1].contiguous()
+    wrong = Pose(torch.as_tensor(np.roll(Rotation.from_rotvec(ang).as_quat(), 1),
+                                 dtype=torch.float32, device=DEV), dt)
+
+    # LOAM scan-to-map: the map stores (65536 rows) filled by insert_into_map
+    # with 12 sweeps' feature clouds at their poses, and the newest sweep's
+    # voxel-filtered stacks at a slightly wrong pose (mapping.py:164, :153)
+    stores = {}
+    for kind, leaf, cap in (("surf", m.surf_filter_size, e.surf_stack_cap),
+                            ("corner", m.corner_filter_size, e.corner_stack_cap)):
+        vm = MAP.VoxelMapStore.empty(m.map_cloud_cap, torch.float32, DEV)
+        for f, _, _, pose in feats[:-1]:
+            c = f.surf_less_flat if kind == "surf" else f.corner_less_sharp
+            cx, cm, _ = VX.voxel_downsample(c.xyz, c.mask, leaf, cap)
+            vm = MAP.insert_into_map(vm, cx, cm, pose, leaf, cfg)
+        c = feats[-1][0].surf_less_flat if kind == "surf" else feats[-1][0].corner_less_sharp
+        cx, cm, _ = VX.voxel_downsample(c.xyz, c.mask, leaf, cap)
+        stores[kind] = ((wrong @ feats[-1][3]).apply(cx).contiguous(), cm.contiguous(),
+                        vm.xyz.contiguous(), vm.mask.contiguous())
 
     f_a, f_b = feats[0][0], feats[1][0]
-    return [
+    cases = [
         ("estimator_5nn", q_xyz, q_mask, map_xyz.contiguous(), map_mask.contiguous(), 5, None),
         ("estimator_5nn_gated", q_xyz, q_mask, map_xyz.contiguous(), map_mask.contiguous(), 5,
          GATE),
@@ -144,7 +184,23 @@ def knn_cases(traj, cfg):
         ("odometry_corner_1nn", f_b.corner_sharp.xyz.contiguous(),
          f_b.corner_sharp.mask.contiguous(), f_a.corner_less_sharp.xyz.contiguous(),
          f_a.corner_less_sharp.mask.contiguous(), 1, None),
+        ("mapping_5nn_gated", *stores["surf"], 5, cfg.mapping.min_match_sq_dis),
     ]
+    return cases, stores["corner"]
+
+
+def corner_plain(q, qm, db, dbm):
+    """The scan-to-map corner search, pinned to the plain version on the
+    card as the reference pins it: its time, beside the kernel's on the
+    same inputs (not used by the path) and the library yardstick."""
+    row = {"case": "mapping_corner_5nn_plain", "Q": q.shape[0], "M": db.shape[0], "k": 5,
+           "valid_q": int(qm.sum()), "valid_m": int(dbm.sum()),
+           "plain_ms": cuda_ms(lambda: KNN.knn_tiled(q, qm, db, dbm, k=5), reps=5),
+           "kernel_wrapper_ms": cuda_ms(lambda: knn_kernel.knn_cuda(q, qm, db, dbm, k=5,
+                                                                    prune_beyond=GATE)),
+           "library_ms": cuda_ms(lambda: library_knn(q, qm, db, dbm, 5), reps=5)}
+    log("corner_plain " + json.dumps(row))
+    return row
 
 
 def timed(fn, reps: int = 20):
@@ -425,28 +481,59 @@ def stage_breakdown(pipe, item):
     return out, stats
 
 
+@contextlib.contextmanager
+def launches_by_path(counts, targets):
+    """Attribute the KNN kernel's launches to the path that made them: each
+    (module, function) in ``targets`` is wrapped for the block, and the
+    launches made inside it are added to ``counts[name]``."""
+    originals = [(name, mod, attr, getattr(mod, attr)) for name, (mod, attr) in targets.items()]
+
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            before = knn_kernel.LAUNCHES
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                counts[name] = counts.get(name, 0) + knn_kernel.LAUNCHES - before
+        return run
+
+    for name, mod, attr, fn in originals:
+        setattr(mod, attr, wrap(name, fn))
+    try:
+        yield counts
+    finally:
+        for _, mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+
+
 def main_path(seq, traj):
     cfg = LioConfig.indoor()
     pipe = LioPipeline(cfg, device=DEV, dtype=torch.float32)
     poses, times, recs = [], [], []
+    by_path = {}
     knn_kernel.LAUNCHES = 0
     t_run = time.perf_counter()
-    for i, item in enumerate(seq[:N_SWEEPS]):
-        before = knn_kernel.LAUNCHES
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = feed(pipe, item)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        poses.append(out["laser_pose"])
-        times.append(item[-1])
-        recs.append({"i": i, "stage": out["stage"], "consumed": "body_pose" in out,
-                     "predicted": bool(out.get("predicted", False)), "s": dt,
-                     "knn": knn_kernel.LAUNCHES - before,
-                     "lm": int(out["solver_iterations"]) if "solver_iterations" in out else None,
-                     "gn": int(out["newest_rounds"]) if "newest_rounds" in out else None})
+    with launches_by_path(by_path, {"lio_estimator": (EST, "lio_step_impl"),
+                                    "lio_odometry": (ODO, "odometry_step")}):
+        for i, item in enumerate(seq[:N_SWEEPS]):
+            before = knn_kernel.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = feed(pipe, item)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            poses.append(out["laser_pose"])
+            times.append(item[-1])
+            recs.append({"i": i, "stage": out["stage"], "consumed": "body_pose" in out,
+                         "predicted": bool(out.get("predicted", False)), "s": dt,
+                         "knn": knn_kernel.LAUNCHES - before,
+                         "lm": int(out["solver_iterations"]) if "solver_iterations" in out
+                         else None,
+                         "gn": int(out["newest_rounds"]) if "newest_rounds" in out else None})
     run_s = time.perf_counter() - t_run
     launches = knn_kernel.LAUNCHES
+    if sum(by_path.values()) != launches:
+        raise AssertionError(f"launches by path {by_path} do not add up to {launches}")
 
     stage = pipe.stage
     inited_at = next((r["i"] for r in recs if r["stage"] == "INITED"), None)
@@ -463,7 +550,8 @@ def main_path(seq, traj):
     summary = {
         "stage": stage, "inited_at_sweep": inited_at, "ate_rmse_m": m.ate_rmse,
         "rpe_trans_rmse_m": m.rpe_trans_rmse, "n_poses": m.n_poses,
-        "knn_launches": launches, "knn_launches_inited": knn_inited,
+        "knn_launches": launches, "knn_launches_by_path": by_path,
+        "knn_launches_inited": knn_inited,
         "consumed_inited_sweeps": len(consumed),
         "knn_per_consumed_inited_sweep": knn_inited / max(len(consumed), 1),
         "steady_consumed_sweeps": len(steady),
@@ -506,7 +594,131 @@ def main_path(seq, traj):
             c["gn"] = int(out["newest_rounds"])
         counts.append(c)
     log("per_sweep_counts " + json.dumps(counts))
-    return summary, launches
+    return summary, by_path
+
+
+# ---------------------------------------------------------------------------
+# phases 5-7: the CLI
+# ---------------------------------------------------------------------------
+
+
+def cli_call(workdir, *args, timeout=900):
+    """``python -m lio_mapping_tpu_torch.cli <args>`` as a subprocess in
+    ``workdir``, this checkout on its path; returns its stdout, raises on a
+    non-zero exit."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(x for x in (ROOT, env.get("PYTHONPATH")) if x)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lio_mapping_tpu_torch.cli", *args],
+                          cwd=workdir, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    for line in proc.stdout.splitlines():
+        log(f"  cli {args[0]}: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    log(f"  cli {args[0]} took {time.perf_counter() - t0:.1f} s")
+    return proc.stdout
+
+
+def _grab(pattern, text, what):
+    m = re.search(pattern, text)
+    if not m:
+        raise AssertionError(f"no {what} in the output:\n{text}")
+    return m.group(1)
+
+
+def cli_lio(workdir):
+    """Phase 5: simulate, run (lio), evaluate, each a subprocess."""
+    cli_call(workdir, "simulate", "--out", "seq.liol", "--gt-out", "gt.tum",
+             "--sweeps", str(N_SWEEPS))
+    out = cli_call(workdir, "run", "--log", "seq.liol", "--profile", "indoor",
+                   "--out", "traj.tum", "--map-out", "map.pcd", "--stats-json", "stats.json")
+    ev = cli_call(workdir, "evaluate", "--est", "traj.tum", "--gt", "gt.tum")
+    with open(os.path.join(workdir, "stats.json")) as f:
+        stats = json.load(f)
+    row = {"stage": _grab(r"\(stage: (\w+)\)", out, "stage"),
+           "ate_rmse_m": float(_grab(r"ATE RMSE: ([0-9.]+) m", ev, "ATE")),
+           "map_voxels": int(_grab(r"wrote (\d+) map voxels", out, "map size")),
+           "stats": stats}
+    log("cli_lio " + json.dumps(row))
+    if row["stage"] != "INITED":
+        raise AssertionError(f"cli run ended {row['stage']}, not INITED")
+    if not row["ate_rmse_m"] <= ATE_LIMIT:
+        raise AssertionError(f"cli run ATE RMSE {row['ate_rmse_m']} m > {ATE_LIMIT} m")
+    if row["map_voxels"] <= 0:
+        raise AssertionError("cli run wrote an empty map")
+    if stats["n_pairs"] != N_SWEEPS - 1:
+        raise AssertionError(f"cli run paired {stats['n_pairs']} sweeps, not {N_SWEEPS - 1}")
+    return row
+
+
+def cli_two_phase(workdir, single):
+    """Phase 6: ``run --two-phase`` equals phase 5's single-process run.
+    ``--timing`` makes phase B print its KNN kernel launches (it only adds
+    a card sync per sweep)."""
+    out = cli_call(workdir, "run", "--log", "seq.liol", "--profile", "indoor",
+                   "--out", "traj_tp.tum", "--map-out", "map_tp.pcd", "--two-phase", "--timing")
+    t_sp, q_sp, p_sp = evaluation.load_tum(os.path.join(workdir, "traj.tum"))
+    t_tp, q_tp, p_tp = evaluation.load_tum(os.path.join(workdir, "traj_tp.tum"))
+    if len(t_tp) != len(t_sp):
+        raise AssertionError(f"two-phase wrote {len(t_tp)} poses, single {len(t_sp)}")
+    row = {"poses": len(t_tp), "max_dt_s": float(np.max(np.abs(t_tp - t_sp))),
+           "max_dp_m": float(np.max(np.abs(p_tp - p_sp))),
+           "min_abs_qdot": float(np.min(np.abs(np.sum(q_tp * q_sp, axis=-1)))),
+           "map_voxels": int(_grab(r"wrote (\d+) map voxels", out, "map size")),
+           "map_voxels_single": single["map_voxels"],
+           "phase_b_knn_launches": int(_grab(r"knn kernel launches: (\d+)", out, "launches"))}
+    log("cli_two_phase " + json.dumps(row))
+    if row["phase_b_knn_launches"] <= 0:
+        raise AssertionError("the CUDA KNN kernel was not launched in the CLI's phase B")
+    if row["max_dt_s"] > 1e-6 or row["max_dp_m"] > 1e-4 or row["min_abs_qdot"] <= 1 - 1e-6:
+        raise AssertionError(f"two-phase trajectory differs from the single run: {row}")
+    if row["map_voxels"] != single["map_voxels"]:
+        raise AssertionError(f"two-phase map has {row['map_voxels']} voxels, single "
+                             f"{single['map_voxels']}")
+    return row
+
+
+def cli_loam(workdir):
+    """Phase 7: ``run --mode loam`` in this process (the kernel's launches
+    counted by path), then ``evaluate``."""
+    def call(*args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(args))
+        for line in buf.getvalue().splitlines():
+            log(f"  cli {args[0]}: {line}")
+        if rc != 0:
+            raise AssertionError(f"cli {' '.join(args)} returned {rc}")
+        return buf.getvalue()
+
+    p = lambda name: os.path.join(workdir, name)  # noqa: E731
+    by_path = {}
+    knn_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with launches_by_path(by_path, {"loam_odometry": (ODO, "odometry_step"),
+                                    "loam_scan_to_map": (MAP, "optimize_to_map")}):
+        out = call("run", "--log", p("seq.liol"), "--profile", "indoor", "--mode", "loam",
+                   "--out", p("traj_loam.tum"), "--map-out", p("map_loam.pcd"),
+                   "--stats-json", p("stats_loam.json"))
+    run_s = time.perf_counter() - t0
+    launches = knn_kernel.LAUNCHES
+    ev = call("evaluate", "--est", p("traj_loam.tum"), "--gt", p("gt.tum"))
+    with open(p("stats_loam.json")) as f:
+        stats = json.load(f)
+    row = {"ate_rmse_m": float(_grab(r"ATE RMSE: ([0-9.]+) m", ev, "ATE")),
+           "map_voxels": int(_grab(r"wrote (\d+) map voxels", out, "map size")),
+           "knn_launches": launches, "knn_launches_by_path": by_path, "run_s": run_s,
+           "stats": stats}
+    log("cli_loam " + json.dumps(row))
+    if sum(by_path.values()) != launches:
+        raise AssertionError(f"launches by path {by_path} do not add up to {launches}")
+    if not row["ate_rmse_m"] <= LOAM_ATE_LIMIT:
+        raise AssertionError(f"LOAM ATE RMSE {row['ate_rmse_m']} m > {LOAM_ATE_LIMIT} m")
+    if by_path.get("loam_scan_to_map", 0) <= 0:
+        raise AssertionError("the CUDA KNN kernel was not launched in the scan-to-map search")
+    return row, by_path
 
 
 def main():
@@ -530,14 +742,21 @@ def main():
 
     traj = sim_trajectory()
     cfg = LioConfig.indoor()
-    checked = [check_case(*c) for c in knn_cases(traj, cfg)]
+    cases, corner = knn_cases(traj, cfg)
+    checked = [check_case(*c) for c in cases]
     rows = [row for row, _ in checked]
     max_err = max(r["max_abs_err"] for r in rows)
+    corner_row = corner_plain(*corner)
 
     t0 = time.perf_counter()
     seq = simulate_sequence(traj, N_SWEEPS + N_EXTRA)
     log(f"simulated {len(seq)} sweeps in {time.perf_counter() - t0:.1f} s")
-    summary, launches = main_path(seq, traj)
+    summary, lio_paths = main_path(seq, traj)
+
+    with tempfile.TemporaryDirectory() as workdir:
+        single = cli_lio(workdir)
+        cli_two_phase(workdir, single)
+        _, loam_paths = cli_loam(workdir)
 
     # the device time of each of the search's kernels, under torch.profiler
     # (after every timed run: the profiler may slow later host work)
@@ -547,15 +766,24 @@ def main():
                                         "device_ms": sum(by_kernel.values())}))
 
     # ms: the kernel's device work (bounds, search); wrapper_ms: the
-    # whole search as the main path calls it
+    # whole search as the main path calls it. The first numbers are the
+    # estimator's gated shape; scan_to_map holds the LOAM shape's.
+    def times(row):
+        return {"ms": row["kernel_ms"], "wrapper_ms": row["wrapper_ms"],
+                "empty_launch_ms": row["empty_launch_ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
+
     main_row = next(r for r in rows if r["case"] == "estimator_5nn_gated")
+    map_row = next(r for r in rows if r["case"] == "mapping_5nn_gated")
+    by_path = {**lio_paths, **loam_paths}
     kernels = [{
         "name": "knn", "route": "cuda", "source": "lio_mapping_tpu_torch/csrc/knn.cu",
         "replaces": "lio_mapping_tpu/ops/pallas/knn_kernel.py:167",
-        "launches": launches, "max_abs_err": max_err, "ms": main_row["kernel_ms"],
-        "wrapper_ms": main_row["wrapper_ms"], "empty_launch_ms": main_row["empty_launch_ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max_err, **times(main_row),
+        "scan_to_map": {"shape": [map_row["Q"], map_row["M"], map_row["k"]], **times(map_row),
+                        "corner_plain_ms": corner_row["plain_ms"]},
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,16 +1,24 @@
-"""Full LIO pipeline orchestration, lio mode on one device
-(port of lio_mapping_tpu.models.pipeline.LioPipeline).
+"""Full pipeline orchestration on one device (port of
+lio_mapping_tpu.models.pipeline).
 
     raw sweep --process_sweep--> features --odometry_step--> laser odom
         --(NOT_INITED: fill window, initializer)--> INITED
         --lio_step--> tightly-coupled window odometry
 
-The estimator consumes every ``odom_io``-th sweep; skipped sweeps get the
-IMU-predicted pose. Bootstrap (``_try_initialize``) runs on the host in
-float64 numpy and moves its results to the device explicitly.
+``LioPipeline``: the estimator consumes every ``odom_io``-th sweep; skipped
+sweeps get the IMU-predicted pose (on the device, or with ``host_predict``
+in numpy from the last consumed step's state). Bootstrap
+(``_try_initialize``) runs on the host in float64 numpy and moves its
+results to the device explicitly. A sweep's cloud travels as one packed
+(N, 4|5) float array (x, y, z, mask[, ring]); ``prefetch_cloud`` starts
+that copy early from a pinned host buffer.
 
-Not ported: cloud prefetch, host-side prediction and the device mesh;
-``LoamPipeline`` raises ``NotImplementedError``.
+``LoamPipeline``: the LiDAR-only baseline, front end -> scan-to-scan
+odometry -> scan-to-map refinement (``models/mapping.py``) every
+``odometry.io_ratio``-th sweep.
+
+Not ported: the device mesh (``mesh``, ``map_shard``, ``ingest_shard``
+raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from ..utils.se3 import Pose
 from ..utils.tree import tree_map, tree_stack
 from . import estimator as EST
 from . import initializer as INIT
+from . import mapping as MAP
 from . import odometry as ODO
 from .point_processor import StartOriTracker, process_sweep, raw_start_ori
 
@@ -41,14 +50,83 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-class LioPipeline:
-    """Sweep-by-sweep LIO: feed (sweep, imu batch) pairs, get poses out."""
+def _check_ring(cfg: LioConfig, ring):
+    """The uneven (ring-annotated) profile REQUIRES per-point rings:
+    elevation binning means nothing for unevenly spaced lasers
+    (processor_node.cc:68-74)."""
+    if cfg.sensor.uneven and ring is None:
+        raise ValueError(
+            "config has sensor.uneven=True (ring-annotated rig) but no per-point ring IDs "
+            "were supplied: record the bag with the driver's `ring` PointField or use an "
+            "elevation-binned profile")
 
-    def __init__(self, cfg: LioConfig, device=None, dtype=torch.float32):
+
+def _pack_xyzw_np(xyz, mask, ring=None, out: np.ndarray | None = None) -> np.ndarray:
+    """Host (N,3) + (N,) mask [+ (N,) ring] -> one packed f32 (N, 4|5)
+    buffer (into ``out`` when given)."""
+    w = 5 if ring is not None else 4
+    if out is None:
+        out = np.empty((len(xyz), w), np.float32)
+    out[:, 0:3] = np.asarray(xyz)[:, 0:3]
+    out[:, 3] = np.asarray(mask, np.float32)
+    if ring is not None:
+        out[:, 4] = np.asarray(ring, np.float32)
+    return out
+
+
+def _upload_cloud(xyz, mask, ring, device, dtype, non_blocking: bool = False):
+    """The packed cloud on ``device`` in ``dtype``: one host buffer, one
+    copy. On a CUDA device the buffer is pinned and fresh per call, so a
+    ``non_blocking`` copy in flight is never overwritten."""
+    w = 5 if ring is not None else 4
+    if device.type == "cuda":
+        host = torch.empty((len(xyz), w), dtype=torch.float32, pin_memory=True)
+        _pack_xyzw_np(xyz, mask, ring, out=host.numpy())
+        return host.to(device, non_blocking=non_blocking).to(dtype)
+    return torch.from_numpy(_pack_xyzw_np(xyz, mask, ring)).to(dtype)
+
+
+def _feats_from_xyzw(xyzw: torch.Tensor, start_ori, cfg: LioConfig):
+    """Packed (N, 4|5) cloud -> features; column 4 (present iff
+    ``cfg.sensor.uneven``) carries the per-point ring."""
+    so = None if start_ori is None else torch.tensor(start_ori, dtype=xyzw.dtype,
+                                                     device=xyzw.device)
+    rings = xyzw[:, 4].to(torch.int32) if cfg.sensor.uneven else None
+    return process_sweep(xyzw[:, 0:3].contiguous(), xyzw[:, 3] > 0.5, cfg, so, rings)
+
+
+class PrefetchedCloud:
+    """A sweep whose packed cloud is already on its way to the device
+    (:meth:`LioPipeline.prefetch_cloud`); pass it to
+    :meth:`LioPipeline.process` in place of ``(xyz, mask)``."""
+
+    __slots__ = ("xyzw", "raw_ori")
+
+    def __init__(self, xyzw, raw_ori):
+        self.xyzw = xyzw          # (N, 4|5) tensor on the device
+        self.raw_ori = raw_ori    # host float from raw_start_ori, or None
+
+
+class LioPipeline:
+    """Sweep-by-sweep LIO: feed (sweep, imu batch) pairs, get poses out.
+
+    ``host_predict``: the pose of a skipped sweep is integrated in numpy
+    from the last consumed step's state, whose copy to the host starts
+    without blocking when that step is enqueued (before the first consumed
+    step, and after ``load``, the device predict runs)."""
+
+    def __init__(self, cfg: LioConfig, device=None, dtype=torch.float32, mesh=None,
+                 map_shard: bool = False, ingest_shard: bool = False,
+                 host_predict: bool = False):
+        if mesh is not None or map_shard or ingest_shard:
+            raise NotImplementedError("the distributed estimator (mesh, map_shard, "
+                                      "ingest_shard) is not ported yet")
         EST.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.host_predict = bool(host_predict)
+        self._snap = None  # (host copies of the last consumed step's state, event)
         self.odom_state = ODO.init_state(cfg, dtype, self.device)
         self.est_state = EST.init_state(cfg, dtype, self.device)
         self.stage = "NOT_INITED"
@@ -81,21 +159,27 @@ class LioPipeline:
         return PI.unpack_samples(t)
 
     def _is_compact(self, frame_count: int) -> bool:
+        """io_ratio cadence: does the sweep numbered ``frame_count``
+        (1-based) consume its cloud (PointOdometry.cc:725-729)?"""
         io = self._io_ratio
         return io < 2 or (frame_count % io == 1)
 
-    def _features(self, xyz, mask, start_ori, ring_ids):
-        pts = torch.as_tensor(np.asarray(xyz, np.float32)[:, 0:3]).to(self.device, self.dtype)
-        msk = torch.as_tensor(np.asarray(mask, bool)).to(self.device)
-        so = None if start_ori is None else torch.tensor(start_ori, dtype=self.dtype,
-                                                         device=self.device)
-        rings = None
-        if self.cfg.sensor.uneven:
-            if ring_ids is None:
-                raise ValueError("config has sensor.uneven=True but no per-point ring IDs "
-                                 "were supplied")
-            rings = torch.as_tensor(np.asarray(ring_ids, np.int32)).to(self.device)
-        return process_sweep(pts, msk, self.cfg, so, rings)
+    def will_consume(self, offset: int = 1) -> bool:
+        """Will the sweep ``offset`` calls from now consume its cloud?
+        Skipped sweeps on the INITED deskew path never use theirs, so a
+        caller need not prefetch them (a conservative True costs one copy)."""
+        e = self.cfg.estimator
+        if self.stage != "INITED" or not (e.enable_deskew or e.cutoff_deskew):
+            return True
+        return self._is_compact(self.frame_count + offset)
+
+    def prefetch_cloud(self, xyz, mask, ring=None) -> PrefetchedCloud:
+        """Start the host-to-device copy of a FUTURE sweep's packed cloud
+        now; pass the handle to :meth:`process` in place of ``(xyz, mask)``."""
+        _check_ring(self.cfg, ring)
+        raw = raw_start_ori(xyz, mask) if self._start_ori_tracker is not None else None
+        return PrefetchedCloud(_upload_cloud(xyz, mask, ring, self.device, self.dtype,
+                                             non_blocking=True), raw)
 
     def _predict(self, packed: np.ndarray) -> Pose:
         """IMU-predicted laser pose for a skipped sweep (the reference's
@@ -106,14 +190,78 @@ class LioPipeline:
         q, p, _ = PI.apply_deltas(pre, st.qs[w], st.ps[w], st.vs[w], st.g_vec)
         return EST.laser_pose(q, p, st.q_lb, st.t_lb)
 
+    @staticmethod
+    def _host_predict_pose(snap: dict, packed: np.ndarray) -> Pose:
+        """Numpy mirror of the device predict (midpoint IMU propagation from
+        the last consumed step's state, then the laser pose;
+        Estimator.cc:387-394, :1391-1394). ``snap`` values are host arrays
+        or CPU tensors. Returns a Pose of float32 numpy arrays."""
+        from scipy.spatial.transform import Rotation
+
+        q = np.asarray(snap["q"], np.float64)
+        p = np.asarray(snap["p"], np.float64)
+        v = np.asarray(snap["v"], np.float64)
+        ba = np.asarray(snap["ba"], np.float64)
+        bg = np.asarray(snap["bg"], np.float64)
+        g = np.asarray(snap["g"], np.float64)
+        q_lb = np.asarray(snap["ex_q"], np.float64)
+        t_lb = np.asarray(snap["ex_p"], np.float64)
+
+        rot = Rotation.from_quat(np.roll(q, -1))
+        acc_prev = np.asarray(packed[0, 1:4], np.float64)
+        gyr_prev = np.asarray(packed[0, 4:7], np.float64)
+        for k in range(1, packed.shape[0]):
+            dt = float(packed[k, 0])
+            if dt == 0.0:
+                continue
+            acc = np.asarray(packed[k, 1:4], np.float64)
+            gyr = np.asarray(packed[k, 4:7], np.float64)
+            un_acc0 = rot.apply(acc_prev - ba) + g
+            un_gyr = 0.5 * (gyr_prev + gyr) - bg
+            rot_new = rot * Rotation.from_rotvec(un_gyr * dt)
+            un_acc = 0.5 * (un_acc0 + (rot_new.apply(acc - ba) + g))
+            p = p + dt * v + 0.5 * dt * dt * un_acc
+            v = v + dt * un_acc
+            rot = rot_new
+            acc_prev, gyr_prev = acc, gyr
+
+        # laser pose: R_l = R_b R_lb^-1, p_l = p_b - R_l t_lb
+        rot_l = rot * Rotation.from_quat(np.roll(q_lb, -1)).inv()
+        p_l = p - rot_l.apply(t_lb)
+        return Pose(np.roll(rot_l.as_quat(), 1).astype(np.float32), p_l.astype(np.float32))
+
+    def _update_snap(self, out: dict):
+        """Start the copies of the consumed step's state to the host (pinned
+        buffers, no block); an event marks when they have landed."""
+        vals = {"q": out["body_pose"].q, "p": out["body_pose"].t, "v": out["velocity"],
+                "ba": out["ba"], "bg": out["bg"], "ex_q": out["ex_q"], "ex_p": out["ex_p"],
+                "g": self.est_state.g_vec}
+        event = None
+        if self.device.type == "cuda":
+            host = {k: torch.empty(a.shape, dtype=a.dtype, pin_memory=True).copy_(
+                a, non_blocking=True) for k, a in vals.items()}
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host = {k: a.detach().clone() for k, a in vals.items()}
+        self._snap = (host, event)
+
     # ------------------------------------------------------------------
-    def process(self, xyz: np.ndarray, mask: np.ndarray, samples: Optional[np.ndarray],
+    def process(self, xyz, mask: Optional[np.ndarray], samples: Optional[np.ndarray],
                 ring_ids: Optional[np.ndarray] = None) -> dict:
-        """Process one sweep (+ its packed IMU interval). Returns pose outputs."""
+        """Process one sweep (+ its packed IMU interval). Returns pose outputs.
+
+        ``xyz`` may be a :class:`PrefetchedCloud` (``mask`` is then None)."""
         cfg = self.cfg
+        pf = None
+        if isinstance(xyz, PrefetchedCloud):
+            pf, xyz, mask = xyz, None, None
+        else:
+            _check_ring(self.cfg, ring_ids)
         start_ori = None
         if self._start_ori_tracker is not None:
-            start_ori = self._start_ori_tracker.update(raw_start_ori(xyz, mask))
+            raw = pf.raw_ori if pf is not None else raw_start_ori(xyz, mask)
+            start_ori = self._start_ori_tracker.update(raw)
         self.frame_count += 1
         if samples is not None:
             self._pending.append(np.asarray(samples, np.float32))
@@ -121,22 +269,36 @@ class LioPipeline:
         if is_compact:
             self._compact_count += 1
 
+        def cloud():
+            if pf is not None:
+                return pf.xyzw
+            return _upload_cloud(xyz, mask, ring_ids, self.device, self.dtype)
+
         deskew_mode = cfg.estimator.enable_deskew or cfg.estimator.cutoff_deskew
         if self.stage == "INITED" and deskew_mode:
             merged = self._merge_pending()
             if not is_compact:
-                return {"stage": self.stage, "laser_pose": self._predict(merged),
-                        "predicted": True}
+                # skipped sweep: its cloud is never used
+                if self.host_predict and self._snap is not None:
+                    host, event = self._snap
+                    if event is not None:
+                        event.synchronize()
+                    lp = self._host_predict_pose(host, merged)
+                else:
+                    lp = self._predict(merged)
+                return {"stage": self.stage, "laser_pose": lp, "predicted": True}
             self._pending = []
-            feats = self._features(xyz, mask, start_ori, ring_ids)
+            feats = _feats_from_xyzw(cloud(), start_ori, cfg)
             self.est_state, out = EST.lio_step_impl(
                 self.est_state, feats.surf_less_flat, self._samples(merged), cfg)
+            if self.host_predict:
+                self._update_snap(out)
             out["corner_cloud"] = feats.corner_less_sharp
             out["surf_cloud"] = feats.surf_less_flat
             out["stage"] = self.stage
             return out
 
-        feats = self._features(xyz, mask, start_ori, ring_ids)
+        feats = _feats_from_xyzw(cloud(), start_ori, cfg)
         self.odom_state, odo_out = ODO.odometry_step(self.odom_state, feats, cfg)
 
         if self.stage == "NOT_INITED":
@@ -195,6 +357,7 @@ class LioPipeline:
         self.stage = "INITED" if int(inited) else "NOT_INITED"
         self.frame_count = int(count)
         self._compact_count = int(compact)
+        self._snap = None  # resumed: the device predict runs until the next consumed step
         self._pending = [pending] if (pending[1:, 0] > 0).any() else []
 
     # ------------------------------------------------------------------
@@ -307,8 +470,58 @@ class LioPipeline:
 
 
 class LoamPipeline:
-    """The LiDAR-only LOAM baseline (reference ``LoamPipeline``): not ported
-    yet."""
+    """LiDAR-only LOAM baseline: front end -> odometry -> scan-to-map.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("LoamPipeline (the LOAM baseline) is not ported yet")
+    The reference's baseline graph (launch/16_scans_test.launch:7-9, no
+    IMU). The scan-to-map refinement runs every ``odometry.io_ratio``-th
+    sweep; in between, the published pose chains the scan-to-scan increment
+    onto the last mapped pose (TransformAssociateToMap,
+    PointMapping.cc:755-758)."""
+
+    def __init__(self, cfg: LioConfig, device=None, dtype=torch.float32):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.odom_state = ODO.init_state(cfg, dtype, self.device)
+        self.map_state = MAP.init_state(cfg, dtype, self.device)
+        self.frame_count = 0
+        self._start_ori_tracker = (StartOriTracker(cfg.sensor.rad_diff)
+                                   if cfg.sensor.infer_start_ori else None)
+
+    def process(self, xyz: np.ndarray, mask: np.ndarray,
+                ring_ids: Optional[np.ndarray] = None) -> dict:
+        cfg = self.cfg
+        _check_ring(cfg, ring_ids)
+        start_ori = None
+        if self._start_ori_tracker is not None:
+            start_ori = self._start_ori_tracker.update(raw_start_ori(xyz, mask))
+        xyzw = _upload_cloud(xyz, mask, ring_ids, self.device, self.dtype)
+        self.frame_count += 1
+
+        feats = _feats_from_xyzw(xyzw, start_ori, cfg)
+        self.odom_state, odo_out = ODO.odometry_step(self.odom_state, feats, cfg)
+        if self.frame_count % cfg.odometry.io_ratio == 0:
+            self.map_state, m_out = MAP.mapping_step(
+                self.map_state, odo_out["corner_cloud"], odo_out["surf_cloud"],
+                odo_out["pose"], cfg)
+            pose = m_out["pose"]
+        else:
+            ms = self.map_state
+            pose = (ms.pose @ (ms.pose_bef.inverse() @ odo_out["pose"])).normalized()
+        return {"stage": "LOAM", "laser_pose": pose, "odom_pose": odo_out["pose"]}
+
+    def save(self, path: str):
+        """The reference's npz layout (``odom``, ``map``, ``meta``)."""
+        from ..io import checkpoint as CKPT
+
+        CKPT.save_state(path, odom=self.odom_state, map=self.map_state,
+                        meta=[np.asarray([self.frame_count], np.int32)])
+
+    def load(self, path: str):
+        from ..io import checkpoint as CKPT
+
+        loaded = CKPT.load_state(path, odom=self.odom_state, map=self.map_state)
+        self.odom_state = loaded["odom"]
+        self.map_state = loaded["map"]
+        with np.load(path, allow_pickle=False) as raw:
+            self.frame_count = int(raw["meta.0"][0])

@@ -69,6 +69,30 @@ def scatter_rows(n_out: int, slot: torch.Tensor, values: torch.Tensor, fill) -> 
     return out[:n_out]
 
 
+def crop_box_filter(xyz: torch.Tensor, mask: torch.Tensor, box_min, box_max, rotation=None,
+                    negative: bool = True) -> torch.Tensor:
+    """Axis-aligned crop-box self-filter; returns the updated mask
+    (input_filters_node.cc:54-62). The rotation into the filtering frame
+    applies to the containment test only; ``negative`` removes the points
+    inside the box."""
+    p = xyz if rotation is None else xyz @ torch.as_tensor(rotation, dtype=xyz.dtype,
+                                                           device=xyz.device).T
+    lo = torch.as_tensor(box_min, dtype=xyz.dtype, device=xyz.device)
+    hi = torch.as_tensor(box_max, dtype=xyz.dtype, device=xyz.device)
+    inside = torch.all((p >= lo) & (p <= hi), dim=-1)
+    return mask & (~inside if negative else inside)
+
+
+# KAIST Urban rig: rotation to the gravity-aligned filtering frame and the
+# vehicle-body crop box (input_filters_node.cc:55-56,84-88).
+KAIST_SELF_FILTER_ROTATION = (
+    (-4.91913910e-01, 7.13989130e-01, -4.98237120e-01),
+    (-5.01145813e-01, -7.00156621e-01, -5.08560301e-01),
+    (-7.11950546e-01, -4.78439170e-04, 7.02229444e-01),
+)
+KAIST_SELF_FILTER_BOX = ((-10.0, -5.0, -1.7), (5.0, 7.0, 0.6))
+
+
 def compact_cloud(c: Cloud, capacity: int) -> Cloud:
     """Pack valid points to the front and truncate/pad to ``capacity``
     (stable order: prefix-sum slot assignment)."""

@@ -2,7 +2,8 @@
 
 Exact sort-based unique + centroid reduction replacing ``pcl::VoxelGrid``:
 quantize to integer cells, pack into one int32 key (10 bits per axis,
-origin-centred), stable-sort, segment-mean. Keys and their sort order match
+origin-centred; ``wide``: two int32 keys of 13 bits per axis, sorted as one
+int64), stable-sort, segment-mean. Keys and their sort order match
 the reference bit for bit; downstream KNN indices and tie-breaks depend on
 the order of the centroids.
 
@@ -20,15 +21,36 @@ _HALF = 1 << (_BITS - 1)  # 512
 _SPAN = 1 << _BITS
 _INT32_MAX = torch.iinfo(torch.int32).max
 
+_BITS_W = 13
+_HALF_W = 1 << (_BITS_W - 1)  # 4096
+_SPAN_W = 1 << _BITS_W
+
+#: per-axis half-extent (in cells) of the wide packing
+HALF_CELLS_WIDE = _HALF_W
+
+
+def _cells(xyz: torch.Tensor, leaf: float) -> torch.Tensor:
+    # clamp before the cast: a float beyond int32 has no defined conversion
+    return torch.clamp(torch.floor(xyz / leaf), -(1 << 20), 1 << 20).to(torch.int32)
+
 
 def voxel_keys(xyz: torch.Tensor, mask: torch.Tensor, leaf: float) -> torch.Tensor:
     """Packed int32 voxel key per point; invalid/out-of-range -> INT32 max."""
-    # clamp before the cast: a float beyond int32 has no defined conversion
-    cells = torch.clamp(torch.floor(xyz / leaf), -(1 << 20), 1 << 20)
-    v = cells.to(torch.int32) + _HALF
+    v = _cells(xyz, leaf) + _HALF
     in_range = torch.all((v >= 0) & (v < _SPAN), dim=-1)
     key = (v[..., 0] * _SPAN + v[..., 1]) * _SPAN + v[..., 2]
     return torch.where(mask & in_range, key, _INT32_MAX)
+
+
+def voxel_keys_wide(xyz: torch.Tensor, mask: torch.Tensor, leaf: float):
+    """13-bit-per-axis packing as TWO int32 keys (a = x*span+y, b = z), as
+    the reference packs them: +-4096 cells per axis. Sorting by (a, b) is
+    sorting one 39-bit key."""
+    v = _cells(xyz, leaf) + _HALF_W
+    ok = mask & torch.all((v >= 0) & (v < _SPAN_W), dim=-1)
+    key_a = torch.where(ok, v[..., 0] * _SPAN_W + v[..., 1], _INT32_MAX)
+    key_b = torch.where(ok, v[..., 2], _INT32_MAX)
+    return key_a, key_b
 
 
 def segment_sum_sorted(values: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
@@ -42,17 +64,25 @@ def segment_sum_sorted(values: torch.Tensor, seg: torch.Tensor, n_seg: int) -> t
 
 
 def voxel_downsample_rows(xyz: torch.Tensor, mask: torch.Tensor, leaf: float,
-                          capacity: int, aux: torch.Tensor | None = None):
+                          capacity: int, aux: torch.Tensor | None = None, wide: bool = False):
     """Row-batched :func:`voxel_downsample`: each of the B rows of
     ``xyz`` (B, N, 3) / ``mask`` (B, N) is downsampled on its own, as the
     reference's ``vmap`` over rings does. Returns ((B,C,3), (B,C),
     (B,C,...) or None)."""
     b, n = mask.shape
-    key = voxel_keys(xyz, mask, leaf)
+    if wide:
+        # the reference's lexsort by (a, b) is a stable sort of a << 32 | b:
+        # a and b are nonnegative int32, and INT32 max marks both invalid
+        key_a, key_b = voxel_keys_wide(xyz, mask, leaf)
+        key = (key_a.to(torch.int64) << 32) | key_b.to(torch.int64)
+        invalid = (_INT32_MAX << 32) | _INT32_MAX
+    else:
+        key = voxel_keys(xyz, mask, leaf)
+        invalid = _INT32_MAX
     order = torch.argsort(key, dim=1, stable=True)
     key_s = torch.gather(key, 1, order)
     xyz_s = torch.gather(xyz, 1, order[..., None].expand(b, n, 3))
-    valid_s = key_s != _INT32_MAX
+    valid_s = key_s != invalid
     first = torch.ones_like(valid_s)
     first[:, 1:] = key_s[:, 1:] != key_s[:, :-1]
     first = first & valid_s
@@ -93,10 +123,9 @@ def voxel_downsample(
     """Centroid-downsample (N,3) points to <=capacity voxel centroids.
 
     Returns (out_xyz (C,3), out_mask (C,), out_aux (C,...) or None), the
-    centroids in ascending key order (a stable sort, as the reference)."""
-    if wide:
-        raise NotImplementedError("wide (13-bit two-key) voxel packing is not ported yet")
+    centroids in ascending key order (a stable sort, as the reference).
+    ``wide`` selects the 13-bit two-key packing (large extents)."""
     ox, om, oa = voxel_downsample_rows(xyz[None], mask[None], leaf, capacity,
-                                       None if aux is None else aux[None])
+                                       None if aux is None else aux[None], wide=wide)
     return ox[0], om[0], None if oa is None else oa[0]
 

@@ -1,0 +1,279 @@
+"""The port's CLI (``python -m lio_mapping_tpu_torch.cli``) against the
+reference's (``lio_mapping_tpu.cli``), on the CPU.
+
+* ``simulate`` writes the same ``.liol`` and ground-truth TUM, byte for byte;
+  ``evaluate`` prints the same lines.
+* The host loop of ``run`` (measurement queue, 4096-row padding, boundary
+  interpolation, prefetch gating) hands the pipeline the same sweeps, masks
+  and packed IMU buffers, bit for bit: a recording stub stands in for each
+  package's pipeline, so no JAX program runs.
+* ``run --device cpu`` over a short log with the reference's small YAML
+  profile (``tests/test_cli_e2e.SMALL_PROFILE``, plus the every-sweep
+  cadence and the narrow feature capacities of
+  ``tests/test_torch_pipeline.cold_cfg`` to keep it to seconds) reaches
+  INITED, and ``--two-phase`` reproduces it under the reference's own
+  thresholds (``tests/test_cli_e2e.py:225-246``), with and without
+  ``--self-filter``: the latter holds the fix of the init-sweep backfill.
+* Flag validation, the refused (not ported) flags, and no silent fall back
+  to the CPU.
+"""
+
+import copy
+import json
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from lio_mapping_tpu import cli as JCLI
+from lio_mapping_tpu_torch import cli as TCLI
+from lio_mapping_tpu_torch.io.evaluation import load_tum
+
+from tests.test_cli_e2e import SMALL_PROFILE
+
+N_SWEEPS = 14  # INITED on the twelfth pair at this profile with --self-filter
+N_SHORT = 10   # INITED on the sixth pair without it: the plain runs take the shorter log
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The runs here are thousands of small ops, which gain nothing from
+    intra-op threads: one thread each, in this process and in the
+    ``--two-phase`` subprocesses, keeps them from oversubscribing the cores
+    when the suite runs on several workers."""
+    n, env = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS")
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
+
+def _profile_yaml(path):
+    prof = copy.deepcopy(SMALL_PROFILE)
+    prof["estimator"]["odom_io"] = 1
+    prof["feature"] = {"corner_sharp_cap": 128, "corner_less_sharp_cap": 1024,
+                       "surf_flat_cap": 256, "surf_less_flat_cap": 2048}
+    with open(path, "w") as f:
+        yaml.safe_dump(prof, f)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def seq(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cli")
+    log, short, gt = str(d / "seq.liol"), str(d / "short.liol"), str(d / "gt.tum")
+    assert TCLI.main(["simulate", "--out", log, "--sweeps", str(N_SWEEPS), "--azimuth", "300",
+                      "--gt-out", gt]) == 0
+    assert TCLI.main(["simulate", "--out", short, "--sweeps", str(N_SHORT),
+                      "--azimuth", "300"]) == 0
+    return {"dir": d, "log": log, "short": short, "gt": gt,
+            "cfg": _profile_yaml(d / "small.yaml")}
+
+
+def test_simulate_writes_the_reference_files(tmp_path, capsys):
+    args = ["--sweeps", "4", "--azimuth", "300"]
+    assert TCLI.main(["simulate", "--out", str(tmp_path / "p.liol"),
+                      "--gt-out", str(tmp_path / "p.tum")] + args) == 0
+    assert JCLI.main(["simulate", "--out", str(tmp_path / "r.liol"),
+                      "--gt-out", str(tmp_path / "r.tum")] + args) == 0
+    assert (tmp_path / "p.liol").read_bytes() == (tmp_path / "r.liol").read_bytes()
+    assert (tmp_path / "p.tum").read_bytes() == (tmp_path / "r.tum").read_bytes()
+
+
+def test_evaluate_prints_the_reference_lines(seq, tmp_path, capsys):
+    t, q, p = load_tum(seq["gt"])
+    rng = np.random.default_rng(0)
+    est = str(tmp_path / "est.tum")
+    from lio_mapping_tpu_torch.io.evaluation import save_tum
+
+    save_tum(est, t[2:] + 1e-3, q[2:], p[2:] + rng.normal(0, 0.05, p[2:].shape))
+    assert TCLI.main(["evaluate", "--est", est, "--gt", seq["gt"]]) == 0
+    port = capsys.readouterr().out
+    assert JCLI.main(["evaluate", "--est", est, "--gt", seq["gt"]]) == 0
+    assert port == capsys.readouterr().out
+    assert "ATE RMSE" in port
+
+
+class _Pose:
+    def __init__(self, i):
+        self.q = np.array([1.0, 0.0, 0.0, 0.0])
+        self.t = np.array([0.01 * i, 0.0, 0.0])
+
+
+def _stub(real, record):
+    """Records what the host loop hands the pipeline; keeps the real
+    ``make_samples``, ``will_consume`` and cadence. Goes INITED on the 4th
+    sweep so that the prefetch gating skips sweeps after it."""
+
+    class Stub:
+        make_samples = real.make_samples
+        will_consume = real.will_consume
+        _is_compact = real._is_compact
+
+        def __init__(self, cfg, *args, **kwargs):
+            self.cfg = cfg
+            self.stage = "NOT_INITED"
+            self.frame_count = 0
+            self._io_ratio = max(1, cfg.estimator.odom_io)
+
+        def prefetch_cloud(self, xyz, mask, ring=None):
+            return ("prefetched", np.array(xyz), np.array(mask))
+
+        def process(self, xyz, mask, samples=None, ring_ids=None):
+            pf = isinstance(xyz, tuple)
+            if pf:
+                _, xyz, mask = xyz
+            record.append((pf, np.array(xyz), np.array(mask),
+                           None if samples is None else np.array(samples)))
+            self.frame_count += 1
+            if self.frame_count == 4:
+                self.stage = "INITED"
+            return {"stage": self.stage, "laser_pose": _Pose(self.frame_count)}
+
+    return Stub
+
+
+@pytest.mark.parametrize("mode,self_filter", [("lio", False), ("loam", False), ("lio", True)],
+                         ids=["lio", "loam", "lio-self-filter"])
+def test_run_host_loop_feeds_the_same_inputs(seq, tmp_path, monkeypatch, capsys, mode,
+                                             self_filter):
+    from lio_mapping_tpu.models import pipeline as JPL
+    from lio_mapping_tpu_torch.models import pipeline as TPL
+
+    rec_j, rec_t = [], []
+    name = "LioPipeline" if mode == "lio" else "LoamPipeline"
+    monkeypatch.setattr(JPL, name, _stub(JPL.LioPipeline, rec_j))
+    monkeypatch.setattr(TPL, name, _stub(TPL.LioPipeline, rec_t))
+    common = ["run", "--log", seq["log"], "--profile", "indoor", "--mode", mode]
+    if self_filter:
+        common.append("--self-filter")
+    assert JCLI.main(common + ["--out", str(tmp_path / "r.tum")]) == 0
+    assert TCLI.main(common + ["--out", str(tmp_path / "p.tum"), "--device", "cpu"]) == 0
+    assert (tmp_path / "r.tum").read_bytes() == (tmp_path / "p.tum").read_bytes()
+
+    assert len(rec_t) == len(rec_j) == N_SWEEPS - 1
+    for i, (a, b) in enumerate(zip(rec_t, rec_j)):
+        assert a[0] == b[0], i  # prefetched alike
+        np.testing.assert_array_equal(a[1], b[1])
+        assert a[1].dtype == b[1].dtype and len(a[1]) % TCLI.PAD_Q == 0
+        np.testing.assert_array_equal(a[2], b[2])
+        if mode == "loam":
+            assert a[3] is None and b[3] is None
+        else:
+            assert a[3].dtype == b[3].dtype
+            np.testing.assert_array_equal(a[3], b[3])
+    if self_filter:
+        # the crop edits the mask on the host, so nothing is prefetched, and
+        # it removes points of every sweep
+        assert not any(r[0] for r in rec_t)
+        assert all(r[2].sum() < len(_log_sweep(seq["log"], i)) for i, r in enumerate(rec_t))
+    elif mode == "lio":
+        # indoor cadence (odom_io 2): some sweeps after INITED go without prefetch
+        assert [r[0] for r in rec_t].count(False) >= 2 and rec_t[0][0]
+
+
+def _log_sweep(path, i):
+    from lio_mapping_tpu_torch import native
+
+    return [x for x in native.SequenceLog(path) if x[0] == "sweep"][i][2]
+
+
+def _run(seq, log, out, *extra):
+    return TCLI.main(["run", "--log", seq[log], "--config", seq["cfg"], "--device", "cpu",
+                      "--out", str(seq["dir"] / out)] + list(extra))
+
+
+def _n_voxels(path):
+    with open(path, "rb") as f:
+        head = f.read(300).decode("ascii", "ignore")
+    return int(re.search(r"POINTS (\d+)", head).group(1))
+
+
+@pytest.fixture(scope="module")
+def single(seq):
+    """One port run on the CPU: its stdout and outputs, without the
+    self-filter on the short log and with it on the long one."""
+    out = {}
+    for sf in (False, True):
+        tag = "sf" if sf else "plain"
+        args = ["--map-out", str(seq["dir"] / f"{tag}.pcd"),
+                "--stats-json", str(seq["dir"] / f"{tag}.json")]
+        if sf:
+            args.append("--self-filter")
+        import contextlib
+        import io
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert _run(seq, "log" if sf else "short", f"{tag}.tum", *args) == 0
+        out[tag] = buf.getvalue()
+    return out
+
+
+def test_run_on_the_cpu_reaches_inited(seq, single):
+    out = single["plain"]
+    assert "stage: INITED" in out, out
+    assert _n_voxels(seq["dir"] / "plain.pcd") > 500
+    with open(seq["dir"] / "plain.json") as f:
+        st = json.load(f)
+    assert st["n_pairs"] == N_SHORT - 1 and st["mode"] == "lio"
+    assert st["t_step_s"] <= st["loop_wall_s"] + 1e-6 and st["fps_steady"] > 0
+    assert st["dispatch_floor_ms"] > 0
+    t, q, p = load_tum(seq["dir"] / "plain.tum")
+    tg, qg, pg = load_tum(seq["gt"])
+    assert len(t) == N_SHORT - 1
+    np.testing.assert_allclose(t, tg[:len(t)], atol=1e-9)
+    assert "stage: INITED" in single["sf"]
+    assert _n_voxels(seq["dir"] / "sf.pcd") > 500
+
+
+@pytest.mark.parametrize("self_filter", [False, True])
+def test_two_phase_equals_single_process(seq, single, self_filter, capfd):
+    tag = "sf" if self_filter else "plain"
+    extra = ["--map-out", str(seq["dir"] / f"{tag}_tp.pcd"), "--two-phase"]
+    if self_filter:
+        extra.append("--self-filter")
+    assert _run(seq, "log" if self_filter else "short", f"{tag}_tp.tum", *extra) == 0
+    capfd.readouterr()
+    t_sp, q_sp, p_sp = load_tum(seq["dir"] / f"{tag}.tum")
+    t_tp, q_tp, p_tp = load_tum(seq["dir"] / f"{tag}_tp.tum")
+    assert len(t_tp) == len(t_sp)
+    np.testing.assert_allclose(t_tp, t_sp, atol=1e-6)
+    np.testing.assert_allclose(p_tp, p_sp, atol=1e-4)
+    assert np.abs(np.sum(q_tp * q_sp, axis=-1)).min() > 1.0 - 1e-6
+    # the init sweep goes back into the map self-filtered like the others
+    assert _n_voxels(seq["dir"] / f"{tag}_tp.pcd") == _n_voxels(seq["dir"] / f"{tag}.pcd")
+
+
+def test_refused_combinations(tmp_path, capsys):
+    log = str(tmp_path / "missing.liol")  # never opened: validation first
+    base = ["run", "--log", log, "--out", str(tmp_path / "t.tum"), "--device", "cpu"]
+    assert TCLI.main(base + ["--stop-at-init", str(tmp_path / "s.json")]) == 2
+    assert "--stop-at-init requires --checkpoint-out" in capsys.readouterr().err
+    assert TCLI.main(base + ["--two-phase", "--resume", str(tmp_path / "c.npz")]) == 2
+    assert "mutually exclusive" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [["--enable-4d"], ["--out-4d", "x.tum"], ["--mesh", "2"],
+                                  ["--map-shard"], ["--ingest-shard"]])
+def test_unported_flags_exit_2(tmp_path, capsys, flag):
+    rc = TCLI.main(["run", "--log", str(tmp_path / "missing.liol"),
+                    "--out", str(tmp_path / "t.tum"), "--device", "cpu"] + flag)
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and "ROADMAP item" in err
+
+
+def test_run_needs_cuda_unless_told_cpu(seq, tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = TCLI.main(["run", "--log", seq["log"], "--out", str(tmp_path / "t.tum")])
+    assert rc != 0
+    assert "CUDA is not available" in capsys.readouterr().err
+    assert not (tmp_path / "t.tum").exists()

@@ -231,3 +231,34 @@ def test_kernel_is_deterministic(dev, gate):
     b = [x.cpu().numpy() for x in TKK.search(*args, k=5, prune_beyond=gate)]
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.view(np.uint8), y.view(np.uint8))
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_scan_to_map_shape(dev):
+    """LOAM's scan-to-map surf search: 6144 queries against the 65536-point
+    map store (32 chunks), k = 5, the 1 m^2 gate. The map is a voxel store
+    (valid rows a prefix, sorted by x as the wide keys sort it), the queries
+    a voxel-filtered stack: gated rows exact, the flags ``prune_flags``."""
+    rng = np.random.default_rng(21)
+    n_q, n_m, k, gate = 6144, 65536, 5, 1.0
+    q, qm, db, dm = _clustered(rng, n_m=40000, n_q=2500)
+    db = np.concatenate([db, np.zeros((n_m - len(db), 3), np.float32)])
+    dm = np.concatenate([dm, np.zeros(n_m - len(dm), bool)])
+    q = np.concatenate([q, np.zeros((n_q - len(q), 3), np.float32)])
+    qm = np.concatenate([qm, np.zeros(n_q - len(qm), bool)])
+    args = [torch.as_tensor(x).to(dev) for x in (q, qm, db, dm)]
+    gd, gi, flags = TKK.search(*args, k=k, prune_beyond=gate)
+    want = TKK.prune_flags(*args, gate)
+    np.testing.assert_array_equal(flags.cpu().numpy(), want.cpu().numpy())
+    assert flags.shape == (24, 32)
+    rd, ri = TK.knn_tiled(*args, k=k)
+    gd, gi, rd, ri = (x.cpu().numpy() for x in (gd, gi, rd, ri))
+    tol = _tol(q, db)
+    assert np.isinf(gd[~qm]).all()
+    rows = qm & (rd[:, k - 1] < gate - tol)
+    beyond = qm & (rd[:, k - 1] >= gate + tol)
+    assert rows.sum() > 1000
+    assert not (gd[beyond, k - 1] < gate - tol).any()
+    np.testing.assert_allclose(gd[rows], rd[rows], atol=tol, rtol=0)
+    np.testing.assert_allclose(_d64(q, db, gi)[rows], _d64(q, db, ri)[rows], atol=2 * tol,
+                               rtol=0)

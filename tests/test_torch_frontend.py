@@ -126,8 +126,13 @@ def test_voxel_centroids_equal_in_order(rng, dtype, tol, _):
         _close(ta, ja, tol)
     _eq(TV.voxel_keys(torch.as_tensor(x), torch.as_tensor(mask), 0.4),
         JV.voxel_keys(jnp.asarray(x), jnp.asarray(mask), 0.4))
-    with pytest.raises(NotImplementedError):
-        TV.voxel_downsample(torch.as_tensor(x), torch.as_tensor(mask), 0.4, 10, wide=True)
+    # the wide packing (ported since): the same centroids in the same order,
+    # here with a truncating capacity
+    tx, tm, _ = TV.voxel_downsample(torch.as_tensor(x), torch.as_tensor(mask), 0.4, 10,
+                                    wide=True)
+    jx, jm, _ = JV.voxel_downsample(jnp.asarray(x), jnp.asarray(mask), 0.4, 10, wide=True)
+    _eq(tm, jm)
+    _close(tx, jx, tol)
 
 
 def test_compact_cloud_matches(rng):
@@ -148,3 +153,24 @@ def test_start_ori_tracker_matches():
     seq = [0.1 + 0.05 * k for k in range(12)] + [2.5] + [0.75 + 0.05 * k for k in range(12)]
     t, j = TPP.StartOriTracker(0.2), JPP.StartOriTracker(0.2)
     assert [t.update(v) for v in seq] == [j.update(v) for v in seq]
+
+
+@pytest.mark.parametrize("negative", [True, False])
+def test_crop_box_filter_matches(rng, negative):
+    """The KAIST-rig self-filter (``run --self-filter``): the same mask out
+    of both, away from the box's faces (there the float32 rotation of each
+    package may round a point to either side), and the same constants."""
+    x = rng.uniform(-12.0, 12.0, (4000, 3)).astype(np.float32)
+    mask = rng.random(4000) < 0.9
+    rot = np.asarray(TC.KAIST_SELF_FILTER_ROTATION, np.float32)
+    lo, hi = TC.KAIST_SELF_FILTER_BOX
+    assert (TC.KAIST_SELF_FILTER_ROTATION, TC.KAIST_SELF_FILTER_BOX) == \
+        (JC.KAIST_SELF_FILTER_ROTATION, JC.KAIST_SELF_FILTER_BOX)
+    got = TC.crop_box_filter(torch.as_tensor(x), torch.as_tensor(mask), lo, hi, rot,
+                             negative=negative).numpy()
+    want = np.asarray(JC.crop_box_filter(jnp.asarray(x), jnp.asarray(mask), lo, hi, rot,
+                                         negative=negative))
+    p = x.astype(np.float64) @ rot.astype(np.float64).T
+    near = np.any(np.minimum(np.abs(p - lo), np.abs(p - hi)) < 1e-4, axis=1)
+    np.testing.assert_array_equal(got[~near], want[~near])
+    assert 100 < int((got != mask).sum()) < 3900  # the box cuts the cloud

@@ -177,3 +177,52 @@ def test_port_imports_neither_jax_nor_reference():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "BAD []" in out.stdout
+
+
+def test_chip_smoke_and_tools_import_neither_jax_nor_reference():
+    """The port's scripts run where JAX is absent: no import of ``jax`` or
+    ``lio_mapping_tpu`` anywhere in their source."""
+    import ast
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    for rel in ("chip_smoke.py", "tools/knn_ab.py"):
+        tree = ast.parse((root / rel).read_text())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.module and not n.level]
+        assert any(m.startswith("lio_mapping_tpu_torch") for m in names), rel
+        bad = [m for m in names if m.split(".")[0] in ("jax", "lio_mapping_tpu")]
+        assert not bad, (rel, bad)
+
+
+def test_stage_timer_and_device_trace(tmp_path):
+    """``StageTimer`` aggregates and reports as the reference's does on the
+    same records; ``device_trace`` writes a Chrome trace, and nothing
+    without a directory."""
+    import json
+
+    from lio_mapping_tpu.utils import timing as JT
+    from lio_mapping_tpu_torch.utils import timing as TT
+
+    recs = {"pipeline": [12.5, 30.25, 7.0], "global_map": [0.5], "flush": [3.0, 1.0]}
+    tt, jt = TT.StageTimer(), JT.StageTimer()
+    tt.records = {k: list(v) for k, v in recs.items()}
+    jt.records = {k: list(v) for k, v in recs.items()}
+    assert tt.summary() == jt.summary()
+    assert tt.report() == jt.report()
+    with tt.stage("cpu", sync_on=torch.zeros(1)):
+        pass
+    assert tt.summary()["cpu"]["count"] == 1
+    off = TT.StageTimer(enabled=False)
+    with off.stage("x"):
+        pass
+    assert off.records == {}
+
+    with TT.device_trace(None):
+        torch.ones(3).sum()
+    assert not list(tmp_path.iterdir())
+    with TT.device_trace(str(tmp_path / "trace")):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    with open(tmp_path / "trace" / "trace.json") as f:
+        assert json.load(f)["traceEvents"]

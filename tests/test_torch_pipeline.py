@@ -41,6 +41,7 @@ from lio_mapping_tpu_torch.models import point_processor as TPP
 from lio_mapping_tpu_torch.models.pipeline import LioPipeline as TPipe
 from lio_mapping_tpu_torch.ops import knn as TK
 from lio_mapping_tpu_torch.ops import preintegration as TPI
+from lio_mapping_tpu_torch.utils.se3 import Pose as TPose
 from lio_mapping_tpu_torch.utils.tree import tree_leaves
 
 from tests.test_lio_pipeline import small_cfg
@@ -258,9 +259,94 @@ def test_unported_variants_raise(flag):
 
 
 def test_unported_entry_points_raise():
-    from lio_mapping_tpu_torch.models.pipeline import LoamPipeline
-
-    with pytest.raises(NotImplementedError):
-        LoamPipeline(port_cfg(small_cfg()))
+    """The device mesh and the Euler preintegration are not ported yet."""
+    cfg = port_cfg(small_cfg())
+    for kw in ({"mesh": object()}, {"map_shard": True}, {"ingest_shard": True}):
+        with pytest.raises(NotImplementedError, match="distributed"):
+            TPipe(cfg, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
         TPI.integrate_euler(None, None, None, None)
+
+
+def test_prefetched_cloud_gives_the_same_sweep():
+    """A cloud handed over through ``prefetch_cloud`` gives the same poses
+    and clouds, bit for bit, as one handed over as (xyz, mask)."""
+    cfg = port_cfg(cold_cfg())
+    traj = JSYN.Trajectory(g_norm=cfg.estimator.imu.g_norm)
+    plain = TPipe(cfg, device="cpu", dtype=F64)
+    pref = TPipe(cfg, device="cpu", dtype=F64)
+    dt = cfg.sensor.scan_period
+    for i in range(3):
+        xyz, mask, imu = _sweep_and_imu(traj, i * dt, dt)
+        assert pref.will_consume()
+        pf = pref.prefetch_cloud(xyz, mask)
+        assert pf.xyzw.dtype == F64 and pf.xyzw.shape == (len(xyz), 4)
+        a = plain.process(xyz, mask, plain.make_samples(*imu))
+        b = pref.process(pf, None, pref.make_samples(*imu))
+        for key in ("laser_pose",):
+            np.testing.assert_array_equal(_np(a[key].t), _np(b[key].t))
+            np.testing.assert_array_equal(_np(a[key].q), _np(b[key].q))
+        np.testing.assert_array_equal(_np(a["surf_cloud"].xyz), _np(b["surf_cloud"].xyz))
+
+
+def test_host_predict_pose(cold_start):
+    """The numpy prediction of a skipped sweep's pose: the reference's own
+    numpy mirror on the same snapshot gives the same bits, and the port's
+    device prediction (float64) agrees within 1e-6."""
+    _, pt, _, traj, (_, cfg) = cold_start
+    w = cfg.estimator.window_size
+    st = pt.est_state
+    snap = {"q": st.qs[w], "p": st.ps[w], "v": st.vs[w], "ba": st.bas[w], "bg": st.bgs[w],
+            "ex_q": st.q_lb, "ex_p": st.t_lb, "g": st.g_vec}
+    dt = cfg.sensor.scan_period
+    _, _, imu = _sweep_and_imu(traj, N_COLD * dt, dt)
+    packed = pt.make_samples(*imu)
+    got = TPipe._host_predict_pose(snap, packed)
+    want = JPipe._host_predict_pose({k: _np(v) for k, v in snap.items()}, packed)
+    np.testing.assert_array_equal(got.t, np.asarray(want.t))
+    np.testing.assert_array_equal(got.q, np.asarray(want.q))
+    dev = pt._predict(packed)
+    np.testing.assert_allclose(got.t, _np(dev.t), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(np.abs(np.sum(got.q * _np(dev.q))), 1.0, atol=1e-6)
+    # the snapshot the pipeline keeps when host_predict is on
+    pt.host_predict = True
+    try:
+        pt._update_snap({"body_pose": TPose(st.qs[w], st.ps[w]), "velocity": st.vs[w],
+                         "ba": st.bas[w], "bg": st.bgs[w], "ex_q": st.q_lb, "ex_p": st.t_lb})
+        host, event = pt._snap
+        assert event is None and set(host) == set(snap)
+        np.testing.assert_array_equal(
+            TPipe._host_predict_pose(host, packed).t, got.t)
+    finally:
+        pt.host_predict = False
+        pt._snap = None
+
+
+def test_host_predict_in_the_pipeline(cold_start, tmp_path):
+    """``host_predict`` through ``process`` at the every-2nd-sweep cadence,
+    resumed from the cold start: the skipped sweep after a consumed one
+    takes the numpy prediction, which agrees with the device prediction of
+    a pipeline without ``host_predict`` (1e-5 m, |q.q'| within 1e-6), and
+    the consumed sweep is the same in both."""
+    _, pt, _, traj, (_, cfg) = cold_start
+    path = str(tmp_path / "cold.npz")
+    pt.save(path)
+    cfg2 = dataclasses.replace(cfg, estimator=dataclasses.replace(cfg.estimator, odom_io=2))
+    pipes = [TPipe(cfg2, device="cpu", dtype=F64, host_predict=h) for h in (False, True)]
+    for p in pipes:
+        p.load(path)
+    dt = cfg.sensor.scan_period
+    kinds = []
+    for i in range(N_COLD, N_COLD + 3):
+        xyz, mask, imu = _sweep_and_imu(traj, i * dt, dt)
+        dev, host = (p.process(xyz, mask, p.make_samples(*imu)) for p in pipes)
+        kinds.append("skipped" if dev.get("predicted") else "consumed")
+        assert bool(host.get("predicted")) == bool(dev.get("predicted"))
+        np.testing.assert_allclose(_np(host["laser_pose"].t), _np(dev["laser_pose"].t),
+                                   atol=1e-5, rtol=0)
+        np.testing.assert_allclose(np.abs(np.sum(_np(host["laser_pose"].q)
+                                                 * _np(dev["laser_pose"].q))), 1.0, atol=1e-6)
+    assert kinds == ["skipped", "consumed", "skipped"]
+    # the last pose came from the host (numpy), the first from the device
+    assert isinstance(host["laser_pose"].t, np.ndarray)
+    assert pipes[1]._snap is not None
