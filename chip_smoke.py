@@ -13,9 +13,11 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    24576-point voxel-filtered local map, with and without the 1.0 m^2 AABB
    gate), the scan-to-scan odometry's 1-NN searches (1024 vs 8192 surf,
    512 vs 4096 corner points) and LOAM's scan-to-map surf search (6144
-   queries against the 65536-point map store, gated), on inputs made by the
-   port's own front end and ``insert_into_map`` from simulated sweeps; at
-   the gated shapes also the kernel's tile flags against ``prune_flags``.
+   queries against the 65536-point map store, gated) and the outdoor_64
+   estimator's (8192 queries against a 32768-point local map, gated, from
+   simulated HDL-64 sweeps), on inputs made by the port's own front end and
+   ``insert_into_map`` from simulated sweeps; at the gated shapes also the
+   kernel's tile flags against ``prune_flags``.
    Times from CUDA events after warm-up: the kernel's device work alone,
    the whole search as the main path calls it, one empty launch in the
    same loop, the plain version and a library yardstick; the scan-to-map
@@ -38,7 +40,27 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    kernel launched in phase B;
 7. ``run --mode loam`` on the same log, in this process so that the
    kernel's launches are counted by path, then ``evaluate``. Fails above
-   0.05 m ATE RMSE or if the kernel did not run in the scan-to-map search.
+   0.05 m ATE RMSE or if the kernel did not run in the scan-to-map search;
+8. ``LioPipeline(LioConfig.outdoor_64())`` (KITTI HDL-64 profile, shipped
+   capacities; identity ``extrinsic_rotation`` and zero
+   ``extrinsic_translation``, the synthetic rig's truth) over 60 simulated
+   64-ring sweeps of ``bench.py``'s trajectory. Fails unless it ends
+   INITED no later than one consumed sweep after the JAX package's run on
+   the CPU, with ATE RMSE <= twice that run's, and the kernel ran at 8192 x
+   32768; then launches, host syncs and stage times of a consumed sweep;
+9. the ``use_corner`` and ``use_corner`` + ``fix_map`` estimator variants
+   of the indoor profile over phase 4's sequence. Each fails unless it ends
+   INITED with ATE RMSE <= twice the JAX package's on the CPU, the surf
+   searches launched the kernel, and the corner searches launched it never
+   while the plain version ran for them;
+10. ``run --enable-4d --out-4d --timing`` on phase 5's log, in this
+   process: the LIO poses equal phase 5's, one 4D pose per consumed INITED
+   sweep, 4D ATE RMSE < max(2 x the LIO ATE, 0.3 m) (the reference's rule),
+   and the builder's surf search launched the kernel;
+11. the outdoor (KAIST rig) profile through the CLI as subprocesses:
+   ``simulate --extrinsic-translation -2.4 0 0.7``, ``run --profile
+   outdoor``, ``evaluate``, held as phase 5 is, against the JAX package's
+   CLI on the CPU on the same log.
 
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -48,6 +70,7 @@ package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -72,6 +95,7 @@ from lio_mapping_tpu_torch import cli  # noqa: E402
 from lio_mapping_tpu_torch.config import LioConfig  # noqa: E402
 from lio_mapping_tpu_torch.io import evaluation, synthetic  # noqa: E402
 from lio_mapping_tpu_torch.models import estimator as EST  # noqa: E402
+from lio_mapping_tpu_torch.models import map_builder as MB  # noqa: E402
 from lio_mapping_tpu_torch.models import mapping as MAP  # noqa: E402
 from lio_mapping_tpu_torch.models import odometry as ODO  # noqa: E402
 from lio_mapping_tpu_torch.models.pipeline import LioPipeline  # noqa: E402
@@ -89,6 +113,18 @@ SCAN_DT = 0.1
 IMU_RATE = 200.0
 ATE_LIMIT = 0.35       # m: twice the reference's 0.1765 m on this sequence
 LOAM_ATE_LIMIT = 0.05  # m: 2.4x the reference's 0.021 m (LOAM) on this sequence
+# the JAX package on the CPU in float32 on exactly these sequences
+# (tools/reference_ate_cpu.py); each limit is twice the reference's ATE
+N_O64 = 60             # outdoor_64 sweeps: 24 fill the window, ~12 consumed INITED after
+N_O64_EXTRA = 9        # sweeps after it: three consumed ones to count on
+O64_REF_INITED_AT = 21
+O64_REF_ATE = 0.20191269725271987
+CORNER_REF_ATE = {"corner": 0.1361345035297154, "corner_fixmap": 0.13884461462875794}
+# the KAIST-rig CLI run (`--cli-outdoor`): INITED, but 2.04 m; the outdoor
+# profile (window 7, every third sweep consumed, a 2.4 m lever arm) drifts
+# in the simulated box room
+OUTDOOR_REF_ATE = 2.0356583933705297
+FOUR_D_FLOOR = 0.3     # m: 4D ATE < max(2 x LIO ATE, 0.3) (tests/test_cli_e2e.py:99-101)
 GATE = 1.0             # estimator min_match_sq_dis (m^2), the kernel's prune gate
 # H100 SXM data-sheet peaks (at 700 W): HBM rate, f32 rate outside the
 # tensor cores
@@ -117,28 +153,39 @@ def sim_trajectory():
 # ---------------------------------------------------------------------------
 
 
-def knn_cases(traj, cfg):
-    """Main-path KNN inputs, made by the port's front end, voxel filter and
-    map store: ([(name, queries, q_mask, db, db_mask, k, prune_beyond)],
-    the scan-to-map corner search's (queries, q_mask, db, db_mask)), on the
-    card."""
+def rings_of(cfg):
+    """``simulate_sweep``'s ring arguments for a profile's sensor."""
+    s = cfg.sensor
+    return dict(n_rings=s.n_rings, lower_deg=s.lower_bound_deg, upper_deg=s.upper_bound_deg)
+
+
+def window_feats(traj, cfg, n: int):
+    """The port's front-end features of ``n`` consumed sweeps (``odom_io``
+    sweeps apart), each with its ground-truth pose as (Rotation, p, Pose)."""
     from scipy.spatial.transform import Rotation
 
-    e, m = cfg.estimator, cfg.mapping
     feats = []
-    for i in range(13):
-        t0 = 0.5 + 2 * SCAN_DT * i  # the odom_io=2 cadence of consumed sweeps
-        xyz, mask = synthetic.simulate_sweep(traj, t0, n_azimuth=900)
+    for i in range(n):
+        t0 = 0.5 + cfg.estimator.odom_io * SCAN_DT * i
+        xyz, mask = synthetic.simulate_sweep(traj, t0, n_azimuth=900, **rings_of(cfg))
         f = process_sweep(torch.as_tensor(xyz[:, :3], dtype=torch.float32, device=DEV),
                           torch.as_tensor(mask, device=DEV), cfg)
         q, p = synthetic.gt_sensor_pose(traj, t0 + SCAN_DT)
         feats.append((f, Rotation.from_quat(np.roll(q, -1)), p,
                       Pose(torch.as_tensor(q, dtype=torch.float32, device=DEV),
                            torch.as_tensor(p, dtype=torch.float32, device=DEV))))
+    return feats
 
-    # estimator: 12 voxel-filtered surf stacks moved into one frame and
-    # voxel-filtered again (as models/estimator.local_map builds it), and
-    # the newest stack at a slightly wrong pose as the queries
+
+def estimator_inputs(feats, cfg, rng):
+    """The estimator's 5-NN search inputs: all but the newest voxel-filtered
+    surf stack moved into one frame and voxel-filtered again (as
+    models/estimator.local_map builds it), and the newest stack at a
+    slightly wrong pose as the queries. Returns (queries, q_mask, map,
+    map_mask, the wrong pose)."""
+    from scipy.spatial.transform import Rotation
+
+    e = cfg.estimator
     stacks = []
     for f, rot, p, _ in feats:
         sx, sm, _ = VX.voxel_downsample(f.surf_less_flat.xyz, f.surf_less_flat.mask,
@@ -149,7 +196,6 @@ def knn_cases(traj, cfg):
     map_xyz, map_mask, _ = VX.voxel_downsample(
         torch.cat([s[0] for s in stacks[:-1]]), torch.cat([s[1] for s in stacks[:-1]]),
         e.surf_filter_size, e.local_map_filtered_cap)
-    rng = np.random.default_rng(SEED)
     ang = rng.normal(size=3) * math.radians(0.5)
     dr = torch.as_tensor(Rotation.from_rotvec(ang).as_matrix(), dtype=torch.float32, device=DEV)
     dt = torch.as_tensor(rng.normal(size=3) * 0.03, dtype=torch.float32, device=DEV)
@@ -157,6 +203,18 @@ def knn_cases(traj, cfg):
     q_mask = stacks[-1][1].contiguous()
     wrong = Pose(torch.as_tensor(np.roll(Rotation.from_rotvec(ang).as_quat(), 1),
                                  dtype=torch.float32, device=DEV), dt)
+    return q_xyz, q_mask, map_xyz.contiguous(), map_mask.contiguous(), wrong
+
+
+def knn_cases(traj, cfg):
+    """Main-path KNN inputs, made by the port's front end, voxel filter and
+    map store: ([(name, queries, q_mask, db, db_mask, k, prune_beyond)],
+    the scan-to-map corner search's (queries, q_mask, db, db_mask)), on the
+    card."""
+    e, m = cfg.estimator, cfg.mapping
+    feats = window_feats(traj, cfg, e.window_size + 1)
+    q_xyz, q_mask, map_xyz, map_mask, wrong = estimator_inputs(
+        feats, cfg, np.random.default_rng(SEED))
 
     # LOAM scan-to-map: the map stores (65536 rows) filled by insert_into_map
     # with 12 sweeps' feature clouds at their poses, and the newest sweep's
@@ -176,9 +234,8 @@ def knn_cases(traj, cfg):
 
     f_a, f_b = feats[0][0], feats[1][0]
     cases = [
-        ("estimator_5nn", q_xyz, q_mask, map_xyz.contiguous(), map_mask.contiguous(), 5, None),
-        ("estimator_5nn_gated", q_xyz, q_mask, map_xyz.contiguous(), map_mask.contiguous(), 5,
-         GATE),
+        ("estimator_5nn", q_xyz, q_mask, map_xyz, map_mask, 5, None),
+        ("estimator_5nn_gated", q_xyz, q_mask, map_xyz, map_mask, 5, GATE),
         ("odometry_surf_1nn", f_b.surf_flat.xyz.contiguous(), f_b.surf_flat.mask.contiguous(),
          f_a.surf_less_flat.xyz.contiguous(), f_a.surf_less_flat.mask.contiguous(), 1, None),
         ("odometry_corner_1nn", f_b.corner_sharp.xyz.contiguous(),
@@ -187,6 +244,28 @@ def knn_cases(traj, cfg):
         ("mapping_5nn_gated", *stores["surf"], 5, cfg.mapping.min_match_sq_dis),
     ]
     return cases, stores["corner"]
+
+
+def outdoor64_cfg():
+    """``LioConfig.outdoor_64()`` at its shipped capacities, with
+    ``bench.py``'s two synthetic-rig concessions: the simulated rig's
+    laser and body frames coincide."""
+    base = LioConfig.outdoor_64()
+    return dataclasses.replace(base, estimator=dataclasses.replace(
+        base.estimator, extrinsic_rotation=(1, 0, 0, 0, 1, 0, 0, 0, 1),
+        extrinsic_translation=(0.0, 0.0, 0.0)))
+
+
+def outdoor64_case():
+    """The outdoor_64 estimator's search: 8192 queries (one surf stack of
+    simulated HDL-64 sweeps) against the 32768-row local map of the 7 frames
+    before it, gated at 1 m^2."""
+    cfg = outdoor64_cfg()
+    feats = window_feats(synthetic.Trajectory(g_norm=cfg.estimator.imu.g_norm), cfg,
+                         cfg.estimator.window_size + 1)
+    q_xyz, q_mask, map_xyz, map_mask, _ = estimator_inputs(
+        feats, cfg, np.random.default_rng(SEED + 1))
+    return ("estimator64_5nn_gated", q_xyz, q_mask, map_xyz, map_mask, 5, GATE)
 
 
 def corner_plain(q, qm, db, dbm):
@@ -381,13 +460,14 @@ def check_case(name, q, qm, db, dbm, k, gate):
 # ---------------------------------------------------------------------------
 
 
-def simulate_sequence(traj, n_sweeps: int):
+def simulate_sequence(traj, n_sweeps: int, rings=None):
     """(xyz, mask, dts, acc, gyr, acc0, gyr0, t_end) per sweep; the IMU
-    interval is (t0, t0 + dt], the sweep's own span."""
+    interval is (t0, t0 + dt], the sweep's own span. ``rings``: the
+    sensor's ring arguments (default: the 16-beam rig)."""
     seq = []
     for i in range(n_sweeps):
         t0 = i * SCAN_DT
-        xyz, mask = synthetic.simulate_sweep(traj, t0, n_azimuth=900)
+        xyz, mask = synthetic.simulate_sweep(traj, t0, n_azimuth=900, **(rings or {}))
         ts, acc, gyr = synthetic.simulate_imu_interval(traj, t0, t0 + SCAN_DT, IMU_RATE)
         a0, w0 = traj.imu(t0)
         dts = np.diff(np.concatenate([[t0], ts]))
@@ -482,15 +562,18 @@ def stage_breakdown(pipe, item):
 
 
 @contextlib.contextmanager
-def launches_by_path(counts, targets):
+def launches_by_path(counts, targets, calls=None):
     """Attribute the KNN kernel's launches to the path that made them: each
     (module, function) in ``targets`` is wrapped for the block, and the
-    launches made inside it are added to ``counts[name]``."""
+    launches made inside it are added to ``counts[name]`` (and its calls to
+    ``calls[name]`` when given)."""
     originals = [(name, mod, attr, getattr(mod, attr)) for name, (mod, attr) in targets.items()]
 
     def wrap(name, fn):
         def run(*args, **kwargs):
             before = knn_kernel.LAUNCHES
+            if calls is not None:
+                calls[name] = calls.get(name, 0) + 1
             try:
                 return fn(*args, **kwargs)
             finally:
@@ -506,16 +589,69 @@ def launches_by_path(counts, targets):
             setattr(mod, attr, fn)
 
 
-def main_path(seq, traj):
-    cfg = LioConfig.indoor()
-    pipe = LioPipeline(cfg, device=DEV, dtype=torch.float32)
-    poses, times, recs = [], [], []
-    by_path = {}
+@contextlib.contextmanager
+def plain_searches(counts, targets):
+    """Count the plain version's searches (``ops/knn.knn_tiled``) made
+    inside each (module, function) of ``targets``, into ``counts[name]``."""
+    active = []
+    orig_tiled = KNN.knn_tiled
+    originals = [(name, mod, attr, getattr(mod, attr)) for name, (mod, attr) in targets.items()]
+
+    def tiled(*args, **kwargs):
+        for name in active:
+            counts[name] = counts.get(name, 0) + 1
+        return orig_tiled(*args, **kwargs)
+
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            active.append(name)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                active.pop()
+        return run
+
+    KNN.knn_tiled = tiled
+    for name, mod, attr, fn in originals:
+        setattr(mod, attr, wrap(name, fn))
+    try:
+        yield counts
+    finally:
+        KNN.knn_tiled = orig_tiled
+        for _, mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def kernel_shapes(shapes):
+    """Count the kernel's searches by (queries, map rows, k) in ``shapes``."""
+    orig = knn_kernel.knn_cuda
+
+    def run(queries, q_mask, db, db_mask, k=5, prune_beyond=None):
+        key = f"{queries.shape[0]}x{db.shape[0]}x{k}"
+        shapes[key] = shapes.get(key, 0) + 1
+        return orig(queries, q_mask, db, db_mask, k=k, prune_beyond=prune_beyond)
+
+    knn_kernel.knn_cuda = run
+    try:
+        yield shapes
+    finally:
+        knn_kernel.knn_cuda = orig
+
+
+def drive(pipe, seq, paths, plain=None):
+    """Feed ``seq`` to ``pipe`` sweep by sweep, each synchronised and timed,
+    with the kernel's launches counted by path (``paths``), the plain
+    version's searches by path (``plain``) and the kernel's searches by
+    shape. Returns (per-sweep records, laser poses, launches by path, plain
+    searches by path, searches by shape, run seconds)."""
+    poses, recs = [], []
+    by_path, plain_counts, shapes = {}, {}, {}
     knn_kernel.LAUNCHES = 0
     t_run = time.perf_counter()
-    with launches_by_path(by_path, {"lio_estimator": (EST, "lio_step_impl"),
-                                    "lio_odometry": (ODO, "odometry_step")}):
-        for i, item in enumerate(seq[:N_SWEEPS]):
+    with launches_by_path(by_path, paths), plain_searches(plain_counts, plain or {}), \
+            kernel_shapes(shapes):
+        for i, item in enumerate(seq):
             before = knn_kernel.LAUNCHES
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -523,7 +659,6 @@ def main_path(seq, traj):
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             poses.append(out["laser_pose"])
-            times.append(item[-1])
             recs.append({"i": i, "stage": out["stage"], "consumed": "body_pose" in out,
                          "predicted": bool(out.get("predicted", False)), "s": dt,
                          "knn": knn_kernel.LAUNCHES - before,
@@ -531,15 +666,19 @@ def main_path(seq, traj):
                          else None,
                          "gn": int(out["newest_rounds"]) if "newest_rounds" in out else None})
     run_s = time.perf_counter() - t_run
-    launches = knn_kernel.LAUNCHES
-    if sum(by_path.values()) != launches:
-        raise AssertionError(f"launches by path {by_path} do not add up to {launches}")
+    if sum(by_path.values()) != knn_kernel.LAUNCHES:
+        raise AssertionError(f"launches by path {by_path} do not add up to {knn_kernel.LAUNCHES}")
+    return recs, poses, by_path, plain_counts, shapes, run_s
 
-    stage = pipe.stage
+
+def summarize(recs, poses, seq, traj, by_path, run_s):
+    """The run's end stage, INITED sweep, ATE/RPE against ground truth and
+    its times per sweep kind (steady: past the first 3 consumed INITED
+    sweeps)."""
     inited_at = next((r["i"] for r in recs if r["stage"] == "INITED"), None)
     est_q = np.stack([p.q.detach().cpu().double().numpy() for p in poses])
     est_t = np.stack([p.t.detach().cpu().double().numpy() for p in poses])
-    gt = [synthetic.gt_sensor_pose(traj, t) for t in times]
+    gt = [synthetic.gt_sensor_pose(traj, item[-1]) for item in seq]
     m = evaluation.evaluate_trajectory(est_q, est_t, np.stack([g[0] for g in gt]),
                                        np.stack([g[1] for g in gt]))
     consumed = [r for r in recs if r["stage"] == "INITED" and r["consumed"]]
@@ -547,10 +686,10 @@ def main_path(seq, traj):
     steady = consumed[3:]  # past the first INITED steps
     steady_all = [r for r in recs if r["stage"] == "INITED" and r["i"] >= steady[0]["i"]] \
         if steady else []
-    summary = {
-        "stage": stage, "inited_at_sweep": inited_at, "ate_rmse_m": m.ate_rmse,
+    return {
+        "stage": recs[-1]["stage"], "inited_at_sweep": inited_at, "ate_rmse_m": m.ate_rmse,
         "rpe_trans_rmse_m": m.rpe_trans_rmse, "n_poses": m.n_poses,
-        "knn_launches": launches, "knn_launches_by_path": by_path,
+        "knn_launches": sum(by_path.values()), "knn_launches_by_path": by_path,
         "knn_launches_inited": knn_inited,
         "consumed_inited_sweeps": len(consumed),
         "knn_per_consumed_inited_sweep": knn_inited / max(len(consumed), 1),
@@ -570,12 +709,20 @@ def main_path(seq, traj):
         "gn_rounds_mean": float(np.mean([r["gn"] for r in consumed])) if consumed else None,
         "run_s": run_s,
     }
+
+
+def main_path(seq, traj):
+    pipe = LioPipeline(LioConfig.indoor(), device=DEV, dtype=torch.float32)
+    recs, poses, by_path, _, _, run_s = drive(
+        pipe, seq[:N_SWEEPS], {"lio_estimator": (EST, "lio_step_impl"),
+                               "lio_odometry": (ODO, "odometry_step")})
+    summary = summarize(recs, poses, seq[:N_SWEEPS], traj, by_path, run_s)
     log("main_path " + json.dumps(summary))
-    if stage != "INITED":
-        raise AssertionError(f"the pipeline ended {stage}, not INITED")
-    if not m.ate_rmse <= ATE_LIMIT:
-        raise AssertionError(f"ATE RMSE {m.ate_rmse:.4f} m > {ATE_LIMIT} m")
-    if knn_inited <= 0:
+    if summary["stage"] != "INITED":
+        raise AssertionError(f"the pipeline ended {summary['stage']}, not INITED")
+    if not summary["ate_rmse_m"] <= ATE_LIMIT:
+        raise AssertionError(f"ATE RMSE {summary['ate_rmse_m']:.4f} m > {ATE_LIMIT} m")
+    if summary["knn_launches_inited"] <= 0:
         raise AssertionError("the CUDA KNN kernel was not launched on the INITED sweeps")
 
     # launches and host syncs per sweep, past the measured run
@@ -595,6 +742,101 @@ def main_path(seq, traj):
         counts.append(c)
     log("per_sweep_counts " + json.dumps(counts))
     return summary, by_path
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: the outdoor_64 profile and the estimator variants
+# ---------------------------------------------------------------------------
+
+
+def outdoor64_path():
+    """Phase 8: ``LioPipeline(outdoor_64)`` in-process over 60 HDL-64
+    sweeps, then a consumed sweep's launches, host syncs and stage times (and
+    a skipped sweep's launches) on the sweeps after it."""
+    cfg = outdoor64_cfg()
+    traj = synthetic.Trajectory(g_norm=cfg.estimator.imu.g_norm)
+    t0 = time.perf_counter()
+    seq = simulate_sequence(traj, N_O64 + N_O64_EXTRA, rings_of(cfg))
+    log(f"simulated {len(seq)} HDL-64 sweeps in {time.perf_counter() - t0:.1f} s")
+    pipe = LioPipeline(cfg, device=DEV, dtype=torch.float32)
+    recs, poses, by_path, _, shapes, run_s = drive(
+        pipe, seq[:N_O64], {"lio_estimator_outdoor64": (EST, "lio_step_impl"),
+                            "lio_odometry_outdoor64": (ODO, "odometry_step")})
+    summary = summarize(recs, poses, seq[:N_O64], traj, by_path, run_s)
+    e = cfg.estimator
+    shape = f"{e.surf_stack_cap}x{e.local_map_filtered_cap}x5"
+    summary.update(kernel_searches_by_shape=shapes, inited_at_limit=O64_REF_INITED_AT + e.odom_io,
+                   ate_limit_m=2 * O64_REF_ATE)
+    log("outdoor64_path " + json.dumps(summary))
+    if summary["stage"] != "INITED":
+        raise AssertionError(f"outdoor_64 ended {summary['stage']}, not INITED")
+    if summary["inited_at_sweep"] > summary["inited_at_limit"]:
+        raise AssertionError(f"outdoor_64 went INITED at sweep {summary['inited_at_sweep']}, "
+                             f"later than {summary['inited_at_limit']}")
+    if not summary["ate_rmse_m"] <= summary["ate_limit_m"]:
+        raise AssertionError(f"outdoor_64 ATE RMSE {summary['ate_rmse_m']:.4f} m > "
+                             f"{summary['ate_limit_m']:.4f} m")
+    if shapes.get(shape, 0) <= 0 or summary["knn_launches_inited"] <= 0:
+        raise AssertionError(f"the kernel did not run at {shape} on the INITED sweeps: {shapes}")
+
+    counts, todo = [], ["launches", "syncs", "stages"]
+    skipped_done = False
+    for item in seq[N_O64:]:
+        consumed = pipe.will_consume()
+        if consumed and todo:
+            kind = todo.pop(0)
+        elif not consumed and not skipped_done:
+            kind, skipped_done = "launches", True
+        else:
+            feed(pipe, item)
+            continue
+        if kind == "launches":
+            out, c = count_launches(pipe, item)
+        elif kind == "syncs":
+            out, n_sync = count_syncs(pipe, item)
+            c = {"host_syncs": n_sync}
+        else:
+            out, c = stage_breakdown(pipe, item)
+        c["consumed"] = "body_pose" in out
+        counts.append(c)
+    log("outdoor64_per_sweep_counts " + json.dumps(counts))
+    return summary, by_path
+
+
+def corner_paths(seq, traj):
+    """Phase 9: ``use_corner`` and ``use_corner`` + ``fix_map`` on the
+    indoor profile over phase 4's sequence, the corner searches' kernel
+    launches and plain searches counted by path."""
+    all_paths = {}
+    for tag, flags in (("corner", dict(use_corner=True)),
+                       ("corner_fixmap", dict(use_corner=True, fix_map=True))):
+        base = LioConfig.indoor()
+        cfg = dataclasses.replace(base, estimator=dataclasses.replace(base.estimator, **flags))
+        pipe = LioPipeline(cfg, device=DEV, dtype=torch.float32)
+        corner = f"lio_estimator_{tag}"
+        recs, poses, by_path, plain, _, run_s = drive(
+            pipe, seq[:N_SWEEPS],
+            {corner: (EST, "_calculate_corner_features"),
+             f"{corner}_surf": (EST, "_calculate_features"),
+             f"lio_odometry_{tag}": (ODO, "odometry_step")},
+            plain={corner: (EST, "_calculate_corner_features")})
+        summary = summarize(recs, poses, seq[:N_SWEEPS], traj, by_path, run_s)
+        summary.update(variant=tag, plain_searches_by_path=plain,
+                       ate_limit_m=2 * CORNER_REF_ATE[tag])
+        log("corner_path " + json.dumps(summary))
+        if summary["stage"] != "INITED":
+            raise AssertionError(f"{tag} ended {summary['stage']}, not INITED")
+        if not summary["ate_rmse_m"] <= summary["ate_limit_m"]:
+            raise AssertionError(f"{tag} ATE RMSE {summary['ate_rmse_m']:.4f} m > "
+                                 f"{summary['ate_limit_m']:.4f} m")
+        if by_path.get(f"{corner}_surf", 0) <= 0:
+            raise AssertionError(f"{tag}: the surf searches did not launch the kernel")
+        if by_path.get(corner, 0) != 0 or plain.get(corner, 0) <= 0:
+            raise AssertionError(f"{tag}: the corner searches must run the plain version only "
+                                 f"(kernel {by_path.get(corner, 0)}, plain "
+                                 f"{plain.get(corner, 0)})")
+        all_paths.update(by_path)
+    return all_paths
 
 
 # ---------------------------------------------------------------------------
@@ -680,31 +922,34 @@ def cli_two_phase(workdir, single):
     return row
 
 
+def cli_inprocess(*args):
+    """``cli.main(args)`` in this process; returns its stdout, raises on a
+    non-zero return."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    for line in buf.getvalue().splitlines():
+        log(f"  cli {args[0]}: {line}")
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(args)} returned {rc}")
+    return buf.getvalue()
+
+
 def cli_loam(workdir):
     """Phase 7: ``run --mode loam`` in this process (the kernel's launches
     counted by path), then ``evaluate``."""
-    def call(*args):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(list(args))
-        for line in buf.getvalue().splitlines():
-            log(f"  cli {args[0]}: {line}")
-        if rc != 0:
-            raise AssertionError(f"cli {' '.join(args)} returned {rc}")
-        return buf.getvalue()
-
     p = lambda name: os.path.join(workdir, name)  # noqa: E731
     by_path = {}
     knn_kernel.LAUNCHES = 0
     t0 = time.perf_counter()
     with launches_by_path(by_path, {"loam_odometry": (ODO, "odometry_step"),
                                     "loam_scan_to_map": (MAP, "optimize_to_map")}):
-        out = call("run", "--log", p("seq.liol"), "--profile", "indoor", "--mode", "loam",
-                   "--out", p("traj_loam.tum"), "--map-out", p("map_loam.pcd"),
-                   "--stats-json", p("stats_loam.json"))
+        out = cli_inprocess("run", "--log", p("seq.liol"), "--profile", "indoor",
+                            "--mode", "loam", "--out", p("traj_loam.tum"),
+                            "--map-out", p("map_loam.pcd"), "--stats-json", p("stats_loam.json"))
     run_s = time.perf_counter() - t0
     launches = knn_kernel.LAUNCHES
-    ev = call("evaluate", "--est", p("traj_loam.tum"), "--gt", p("gt.tum"))
+    ev = cli_inprocess("evaluate", "--est", p("traj_loam.tum"), "--gt", p("gt.tum"))
     with open(p("stats_loam.json")) as f:
         stats = json.load(f)
     row = {"ate_rmse_m": float(_grab(r"ATE RMSE: ([0-9.]+) m", ev, "ATE")),
@@ -719,6 +964,87 @@ def cli_loam(workdir):
     if by_path.get("loam_scan_to_map", 0) <= 0:
         raise AssertionError("the CUDA KNN kernel was not launched in the scan-to-map search")
     return row, by_path
+
+
+def cli_4d(workdir):
+    """Phase 10: ``run --enable-4d --out-4d --timing`` on phase 5's log in
+    this process (launches and calls counted by path), ``evaluate`` of the
+    LIO and the 4D trajectory."""
+    p = lambda name: os.path.join(workdir, name)  # noqa: E731
+    by_path, calls = {}, {}
+    knn_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with launches_by_path(by_path, {"map_builder": (MB, "map_builder_step"),
+                                    "lio_estimator_4d": (EST, "lio_step_impl"),
+                                    "lio_odometry_4d": (ODO, "odometry_step")}, calls):
+        out = cli_inprocess("run", "--log", p("seq.liol"), "--profile", "indoor",
+                            "--out", p("traj_4d_lio.tum"), "--enable-4d", "--out-4d",
+                            p("traj_4d.tum"), "--timing")
+    run_s = time.perf_counter() - t0
+    if sum(by_path.values()) != knn_kernel.LAUNCHES:
+        raise AssertionError(f"launches by path {by_path} do not add up to {knn_kernel.LAUNCHES}")
+    ate = float(_grab(r"ATE RMSE: ([0-9.]+) m", cli_inprocess(
+        "evaluate", "--est", p("traj_4d_lio.tum"), "--gt", p("gt.tum")), "ATE"))
+    ate_4d = float(_grab(r"ATE RMSE: ([0-9.]+) m", cli_inprocess(
+        "evaluate", "--est", p("traj_4d.tum"), "--gt", p("gt.tum")), "ATE"))
+    t_sp, q_sp, p_sp = evaluation.load_tum(p("traj.tum"))
+    t_lio, q_lio, p_lio = evaluation.load_tum(p("traj_4d_lio.tum"))
+    t_4d, _, _ = evaluation.load_tum(p("traj_4d.tum"))
+    stage = re.search(r"\n(map_builder\s.*)", out)
+    row = {"ate_rmse_m": ate, "ate_4d_rmse_m": ate_4d,
+           "ate_4d_limit_m": max(2 * ate, FOUR_D_FLOOR), "poses_4d": len(t_4d),
+           "builder_calls": calls.get("map_builder", 0),
+           "estimator_steps": calls.get("lio_estimator_4d", 0),
+           "max_dp_vs_phase5_m": float(np.max(np.abs(p_lio - p_sp))) if len(t_lio) == len(t_sp)
+           else None,
+           "min_abs_qdot_vs_phase5": float(np.min(np.abs(np.sum(q_lio * q_sp, axis=-1))))
+           if len(t_lio) == len(t_sp) else None,
+           "map_builder_stage": stage.group(1).split() if stage else None,
+           "knn_launches_by_path": by_path, "run_s": run_s}
+    log("cli_4d " + json.dumps(row))
+    if len(t_lio) != len(t_sp) or np.max(np.abs(t_lio - t_sp)) > 1e-6 \
+            or row["max_dp_vs_phase5_m"] > 1e-4 or row["min_abs_qdot_vs_phase5"] <= 1 - 1e-6:
+        raise AssertionError(f"the LIO poses with --enable-4d differ from phase 5's: {row}")
+    # the builder runs on every consumed INITED sweep: the init sweep and
+    # each estimator step after it
+    if not len(t_4d) == row["builder_calls"] == row["estimator_steps"] + 1:
+        raise AssertionError(f"{len(t_4d)} 4D poses for {row['builder_calls']} builder calls "
+                             f"and {row['estimator_steps']} estimator steps")
+    if not ate_4d < row["ate_4d_limit_m"]:
+        raise AssertionError(f"4D ATE RMSE {ate_4d} m >= {row['ate_4d_limit_m']} m")
+    if by_path.get("map_builder", 0) <= 0:
+        raise AssertionError("the 4D builder's surf search did not launch the kernel")
+    return row, by_path
+
+
+def cli_outdoor(workdir):
+    """Phase 11: the outdoor (KAIST rig) profile through the CLI as
+    subprocesses: simulate with the rig's laser offset, run, evaluate."""
+    cli_call(workdir, "simulate", "--out", "seq_o.liol", "--gt-out", "gt_o.tum",
+             "--sweeps", str(N_SWEEPS), "--extrinsic-translation", "-2.4", "0", "0.7")
+    out = cli_call(workdir, "run", "--log", "seq_o.liol", "--profile", "outdoor",
+                   "--out", "traj_o.tum", "--map-out", "map_o.pcd", "--stats-json",
+                   "stats_o.json", "--timing")
+    ev = cli_call(workdir, "evaluate", "--est", "traj_o.tum", "--gt", "gt_o.tum")
+    with open(os.path.join(workdir, "stats_o.json")) as f:
+        stats = json.load(f)
+    row = {"stage": _grab(r"\(stage: (\w+)\)", out, "stage"),
+           "ate_rmse_m": float(_grab(r"ATE RMSE: ([0-9.]+) m", ev, "ATE")),
+           "ate_limit_m": 2 * OUTDOOR_REF_ATE,
+           "map_voxels": int(_grab(r"wrote (\d+) map voxels", out, "map size")),
+           "knn_launches": int(_grab(r"knn kernel launches: (\d+)", out, "launches")),
+           "stats": stats}
+    log("cli_outdoor " + json.dumps(row))
+    if row["stage"] != "INITED":
+        raise AssertionError(f"outdoor cli run ended {row['stage']}, not INITED")
+    if not row["ate_rmse_m"] <= row["ate_limit_m"]:
+        raise AssertionError(f"outdoor ATE RMSE {row['ate_rmse_m']} m > {row['ate_limit_m']} m")
+    if row["map_voxels"] <= 0 or stats["n_pairs"] != N_SWEEPS - 1:
+        raise AssertionError(f"outdoor cli run: {row['map_voxels']} map voxels, "
+                             f"{stats['n_pairs']} pairs")
+    if row["knn_launches"] <= 0:
+        raise AssertionError("the outdoor cli run did not launch the kernel")
+    return row
 
 
 def main():
@@ -743,7 +1069,7 @@ def main():
     traj = sim_trajectory()
     cfg = LioConfig.indoor()
     cases, corner = knn_cases(traj, cfg)
-    checked = [check_case(*c) for c in cases]
+    checked = [check_case(*c) for c in cases + [outdoor64_case()]]
     rows = [row for row, _ in checked]
     max_err = max(r["max_abs_err"] for r in rows)
     corner_row = corner_plain(*corner)
@@ -757,6 +1083,10 @@ def main():
         single = cli_lio(workdir)
         cli_two_phase(workdir, single)
         _, loam_paths = cli_loam(workdir)
+        _, o64_paths = outdoor64_path()
+        corner_by_path = corner_paths(seq, traj)
+        _, four_d_paths = cli_4d(workdir)
+        outdoor = cli_outdoor(workdir)
 
     # the device time of each of the search's kernels, under torch.profiler
     # (after every timed run: the profiler may slow later host work)
@@ -767,7 +1097,8 @@ def main():
 
     # ms: the kernel's device work (bounds, search); wrapper_ms: the
     # whole search as the main path calls it. The first numbers are the
-    # estimator's gated shape; scan_to_map holds the LOAM shape's.
+    # estimator's gated shape; scan_to_map holds the LOAM shape's, outdoor64
+    # the outdoor_64 estimator's.
     def times(row):
         return {"ms": row["kernel_ms"], "wrapper_ms": row["wrapper_ms"],
                 "empty_launch_ms": row["empty_launch_ms"], "plain_ms": row["plain_ms"],
@@ -776,7 +1107,9 @@ def main():
 
     main_row = next(r for r in rows if r["case"] == "estimator_5nn_gated")
     map_row = next(r for r in rows if r["case"] == "mapping_5nn_gated")
-    by_path = {**lio_paths, **loam_paths}
+    o64_row = next(r for r in rows if r["case"] == "estimator64_5nn_gated")
+    by_path = {**lio_paths, **loam_paths, **o64_paths, **corner_by_path, **four_d_paths,
+               "cli_outdoor": outdoor["knn_launches"]}
     kernels = [{
         "name": "knn", "route": "cuda", "source": "lio_mapping_tpu_torch/csrc/knn.cu",
         "replaces": "lio_mapping_tpu/ops/pallas/knn_kernel.py:167",
@@ -784,6 +1117,7 @@ def main():
         "max_abs_err": max_err, **times(main_row),
         "scan_to_map": {"shape": [map_row["Q"], map_row["M"], map_row["k"]], **times(map_row),
                         "corner_plain_ms": corner_row["plain_ms"]},
+        "outdoor64": {"shape": [o64_row["Q"], o64_row["M"], o64_row["k"]], **times(o64_row)},
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

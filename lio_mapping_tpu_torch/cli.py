@@ -6,7 +6,7 @@
         --out traj.tum [--map-out map.pcd] [--mode lio|loam] [--device cuda|cpu]
         [--self-filter] [--timing] [--trace-dir d] [--stats-json s.json]
         [--checkpoint-out c.npz --checkpoint-every N] [--resume c.npz]
-        [--two-phase]
+        [--two-phase] [--enable-4d --out-4d traj_4d.tum]
     python -m lio_mapping_tpu_torch.cli evaluate --est traj.tum --gt gt.tum
     python -m lio_mapping_tpu_torch.cli export-pcd --log seq.liol \
         --traj traj.tum --out map.pcd
@@ -20,10 +20,12 @@ measurement queue pairs each sweep with its IMU up to ``t +
 msg_time_delay``, the boundary sample is split there by linear
 interpolation, sweeps are padded to 4096-row multiples, and a sweep's cloud
 is copied to the card when it arrives if the pipeline will consume it.
+``--enable-4d`` runs the yaw-constrained 4D map builder
+(``models/map_builder.py``) on each INITED sweep the estimator consumed,
+with its newest laser pose; ``--out-4d`` writes the refined poses.
 
-Not ported yet, refused with exit code 2: ``--enable-4d`` and ``--out-4d``
-(the 4D map builder), ``--mesh``, ``--map-shard`` and ``--ingest-shard``
-(multi-GPU). Two faults of the reference are fixed here: ``--two-phase``
+Not ported yet, refused with exit code 2: ``--mesh``, ``--map-shard`` and
+``--ingest-shard`` (multi-GPU). Two faults of the reference are fixed here: ``--two-phase``
 applies ``--self-filter`` to the initialisation sweep it puts back into the
 map, and the log reader keeps each sweep in its own handle.
 """
@@ -40,9 +42,7 @@ import numpy as np
 
 PAD_Q = 4096  # sweep rows are padded to a multiple of this (masked rows)
 # (flag, attribute, ROADMAP item) of the options that are not ported yet
-_UNPORTED = (("--enable-4d", "enable_4d", "14 (4D map builder)"),
-             ("--out-4d", "out_4d", "14 (4D map builder)"),
-             ("--mesh", "mesh", "16 (multi-GPU)"),
+_UNPORTED = (("--mesh", "mesh", "16 (multi-GPU)"),
              ("--map-shard", "map_shard", "16 (multi-GPU)"),
              ("--ingest-shard", "ingest_shard", "16 (multi-GPU)"))
 
@@ -137,11 +137,14 @@ def _run_two_phase(args):
             return 1
         pb = base + ["--out", args.out, "--resume", ckpt, "--skip-pairs", str(meta["pairs"]),
                      "--bound-in", sidecar, "--traj-prefix", prefix]
-        for flag, val in (("--map-out", args.map_out), ("--trace-dir", args.trace_dir),
+        for flag, val in (("--map-out", args.map_out), ("--out-4d", args.out_4d),
+                          ("--trace-dir", args.trace_dir),
                           ("--stats-json", args.stats_json),
                           ("--checkpoint-out", args.checkpoint_out)):
             if val:
                 pb += [flag, val]
+        if args.enable_4d:
+            pb.append("--enable-4d")
         if args.timing:
             pb.append("--timing")
         if args.checkpoint_every:
@@ -217,6 +220,16 @@ def cmd_run(args):
     timer = StageTimer(enabled=args.timing, sync=args.timing)
     knn_launches0 = knn_kernel.LAUNCHES
 
+    # the 4D map builder consumes the estimator's output
+    # (launch/map_4D_indoor.launch:9-15)
+    mb_state = None
+    times_4d, qs_4d, ts_4d = [], [], []
+    if args.enable_4d:
+        from .models import map_builder as MB
+        from .models import mapping as MAPM
+
+        mb_state = MAPM.init_state(cfg, torch.float32, device)
+
     self_rot = self_box = None
     if args.self_filter:
         from .ops.cloud import KAIST_SELF_FILTER_BOX, KAIST_SELF_FILTER_ROTATION, crop_box_filter
@@ -230,9 +243,10 @@ def cmd_run(args):
 
     # poses stay on the device until a flush copies them back together:
     # once at the end for a pose-only replay, every FLUSH_EVERY sweeps when
-    # the map export needs them on the host
-    FLUSH_EVERY = 512 if global_map is not None else 65536
+    # the map export or the 4D builder is on
+    FLUSH_EVERY = 512 if (global_map is not None or args.enable_4d) else 65536
     pend_t, pend_q, pend_p = [], [], []  # stamps + pose refs
+    pend_t4, pend_q4, pend_p4 = [], [], []  # the 4D builder's
     map_pend = []                        # (index in pend, masked xyz)
     times, qs, ts = [], [], []
 
@@ -255,6 +269,10 @@ def cmd_run(args):
                     global_map.insert(world.astype(np.float32))
             map_pend.clear()
         pend_t.clear(), pend_q.clear(), pend_p.clear()
+        times_4d.extend(pend_t4)
+        qs_4d.extend(_host_f64(pend_q4))
+        ts_4d.extend(_host_f64(pend_p4))
+        pend_t4.clear(), pend_q4.clear(), pend_p4.clear()
         stats["t_flush"] += time.perf_counter() - f0
 
     def step(t, xyz, mask, samples, ring=None, pf=None):
@@ -268,6 +286,7 @@ def cmd_run(args):
         stats["n_pairs"] += 1
 
     def _step_impl(t, xyz, mask, samples, ring, pf=None):
+        nonlocal mb_state
         if self_rot is not None:
             with timer.stage("self_filter"):
                 mask = self_filter(xyz, mask)
@@ -281,6 +300,14 @@ def cmd_run(args):
         pose = out.get("laser_pose")
         if pose is None:
             return
+        if mb_state is not None and out.get("stage") == "INITED" \
+                and "corner_cloud" in out and not out.get("predicted"):
+            with timer.stage("map_builder", sync_on=device):
+                mb_state, mb_out = MB.map_builder_step(
+                    mb_state, out["corner_cloud"], out["surf_cloud"], pose, cfg)
+            pend_t4.append(t)
+            pend_q4.append(mb_out["pose"].q)
+            pend_p4.append(mb_out["pose"].t)
         pend_t.append(t)
         pend_q.append(pose.q)
         pend_p.append(pose.t)
@@ -484,6 +511,9 @@ def cmd_run(args):
     if global_map is not None:
         global_map.save_pcd(args.map_out)
         print(f"wrote {len(global_map)} map voxels to {args.map_out}")
+    if args.out_4d and times_4d:
+        save_tum(args.out_4d, times_4d, np.stack(qs_4d), np.stack(ts_4d))
+        print(f"wrote {len(times_4d)} 4D-refined poses to {args.out_4d}")
     if args.checkpoint_out:
         pipe.save(args.checkpoint_out)
         print(f"wrote checkpoint to {args.checkpoint_out}")
@@ -580,7 +610,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=None)
     p.add_argument("--two-phase", action="store_true",
                    help="initialise in one subprocess, checkpoint, then resume and replay "
-                        "the rest of the log in a fresh one; --map-out stays complete")
+                        "the rest of the log in a fresh one; --map-out stays complete; "
+                        "--enable-4d/--out-4d start one sweep after init (the builder "
+                        "runs in phase B)")
     # worker flags of --two-phase (also usable to resume a checkpointed replay)
     p.add_argument("--stop-at-init", default=None, metavar="SIDECAR",
                    help="stop right after initialization; write the pair count and IMU "
@@ -594,9 +626,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats-json", default=None,
                    help="write replay-loop throughput stats (f/s, ingest/step/flush split) "
                         "to this JSON; with --two-phase, of phase B")
+    p.add_argument("--enable-4d", action="store_true",
+                   help="run the yaw-constrained 4D map builder on the estimator output "
+                        "(map_4D_indoor.launch)")
+    p.add_argument("--out-4d", default=None, help="TUM output of the 4D-refined trajectory")
     # parsed, but not ported yet: refused with exit code 2
-    p.add_argument("--enable-4d", action="store_true", help="not ported yet (ROADMAP item 14)")
-    p.add_argument("--out-4d", default=None, help="not ported yet (ROADMAP item 14)")
     p.add_argument("--mesh", type=int, default=0, help="not ported yet (ROADMAP item 16)")
     p.add_argument("--map-shard", action="store_true", help="not ported yet (ROADMAP item 16)")
     p.add_argument("--ingest-shard", action="store_true",

@@ -7,13 +7,25 @@ local map, 5-NN plane association for frames pivot+1..W-1, the newest-frame
 mini-GN (keep_features), convergence gates, the window LM, the yaw-gauge
 fix and pivot marginalization.
 
+The reference's variants are flags of ``EstimatorConfig``:
+
+* ``use_corner`` (Estimator.h:55): corner stacks and a corner local map;
+  each corner point adds two half-weighted plane-style rows from a 5-NN
+  line fit. The corner search runs the plain tiled KNN on the card too
+  (``make_knn5(..., force_tiled=True)``), as the reference pins it: a
+  last-ulp near-tie flips the 5-NN set and the line-fit gate amplifies it.
+* ``fix_map`` (Estimator.h:56): the local map is built at the frozen
+  linearization poses (``qs_lin``/``ps_lin``); only the newest frame's is
+  refreshed after the solve.
+* ``cutoff_deskew``: the step takes the clouds as they come, without the
+  IMU deskew.
+
 The mini-GN and LM early exits are Python loops that read one device flag
-per round (a host sync each); the association searches go through
+per round (a host sync each); the surf searches go through
 ``ops.knn.knn``, which launches the CUDA kernel on the card.
 
-Not ported (they raise ``NotImplementedError``): ``use_corner``,
-``fix_map``, ``cutoff_deskew`` and the distributed ``axis``/``map_shard``
-step.
+Not ported (it raises ``NotImplementedError``): the distributed
+``axis``/``map_shard`` step.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ from ..ops import preintegration as PI
 from ..ops import solver as SV
 from ..ops import voxel as VX
 from ..ops.cloud import Cloud
-from ..ops.fits import plane_fit
+from ..ops.fits import line_fit, plane_fit, point_to_line_residual
 from ..utils import quaternion as quat
 from ..utils.se3 import Pose
 from ..utils.tree import tree_map
@@ -62,14 +74,6 @@ class EstimatorState(NamedTuple):
     t_lb: torch.Tensor    # (3,)
     convergence_flag: torch.Tensor  # bool
     extrinsic_enabled: torch.Tensor  # bool
-
-
-def check_supported(cfg: LioConfig):
-    """Raise on estimator variants this port does not carry yet."""
-    e = cfg.estimator
-    for flag in ("use_corner", "fix_map", "cutoff_deskew"):
-        if getattr(e, flag):
-            raise NotImplementedError(f"estimator variant {flag}=True is not ported yet")
 
 
 def init_state(cfg: LioConfig, dtype=torch.float32, device=None) -> EstimatorState:
@@ -143,17 +147,18 @@ def _fov_ok(point_sel, local_q, local_t):
     return (check1 < 0) & (check2 > 0)
 
 
-def make_knn5(map_xyz, map_mask, cfg: LioConfig, axis=None):
+def make_knn5(map_xyz, map_mask, cfg: LioConfig, axis=None, force_tiled: bool = False):
     """5-NN closure over a local map: (point_sel, sel_mask) ->
     (sq_d (N,5), neighbors (N,5,3)). On the card the search runs the CUDA
-    kernel with the AABB gate at ``min_match_sq_dis``."""
+    kernel with the AABB gate at ``min_match_sq_dis``; ``force_tiled``
+    keeps it on the plain tiled version (the corner map's search)."""
     if axis is not None:
         raise NotImplementedError("map-sharded ring KNN (multi-GPU) is not ported yet")
     e = cfg.estimator
 
     def knn5(point_sel, sel_mask):
         sq_d, idx = KNN.knn(point_sel, sel_mask, map_xyz, map_mask, k=5,
-                            prune_beyond=e.min_match_sq_dis)
+                            prune_beyond=e.min_match_sq_dis, force_tiled=force_tiled)
         return sq_d, map_xyz[idx.to(torch.int64)]
     return knn5
 
@@ -180,10 +185,57 @@ def _calculate_features(knn5, stack_xyz, stack_mask, local_q, local_t, cfg: LioC
     return _surf_rows(knn5, point_sel, stack_mask, in_fov, cfg)
 
 
+def _corner_rows(knn5, point_sel, sel_mask, in_fov, cfg: LioConfig):
+    """Row-wise corner association core (Estimator.cc:1099-1232): 5-NN line
+    fit (accepted when l_max > 3 l_mid), then the point-to-line constraint
+    as TWO half-weighted plane-style rows: one along the normal from the
+    line to the point (it carries the distance), one along
+    ``(X1 - X2) x normal`` (not normalised, |.| = 0.2, as the reference).
+    Returns (coeff1 (N,4), coeff2 (N,4), s (N,), ok (N,))."""
+    e = cfg.estimator
+    sq_d, neighbors = knn5(point_sel, sel_mask)
+    nn_ok = sq_d[:, 4] < e.min_match_sq_dis
+    centroid, direction, line_ok = line_fit(neighbors, nn_ok)
+    ld2, n = point_to_line_residual(point_sel, centroid, direction)
+    # (X1 - X2) x normal with X1/2 = c +- 0.1 u (Estimator.cc:1160)
+    ncp = quat.cross(0.2 * direction, n)
+    point_proj = point_sel - n * ld2[:, None]
+    ld_p1 = -torch.sum(n * point_proj, dim=-1)
+    ld_p2 = -torch.sum(ncp * point_proj, dim=-1)
+    s = 1.0 - 0.9 * torch.abs(ld2)
+    ok = sel_mask & nn_ok & line_ok & (s > 0.1) & in_fov
+    # score and coefficients carry an extra 0.5 (Estimator.cc:1216-1228)
+    coeff1 = 0.5 * torch.cat([s[:, None] * n, (s * ld_p1)[:, None]], dim=-1)
+    coeff2 = 0.5 * torch.cat([s[:, None] * ncp, (s * ld_p2)[:, None]], dim=-1)
+    return coeff1, coeff2, s, ok
+
+
+def _calculate_corner_features(knn5, stack_xyz, stack_mask, local_q, local_t, cfg: LioConfig):
+    """Corner association of one frame's stack (see :func:`_corner_rows`)."""
+    point_sel = quat.rotate(local_q[None, :], stack_xyz) + local_t[None, :]
+    in_fov = _fov_ok(point_sel, local_q, local_t)
+    return _corner_rows(knn5, point_sel, stack_mask, in_fov, cfg)
+
+
 def _associate_frame(assoc, stacks, local_q, local_t, cfg: LioConfig):
-    """All feature rows for one frame: (points (F,3), coeff (F,4), ok (F,))."""
+    """All feature rows for one frame: (points (F,3), coeff (F,4), ok (F,)).
+    ``assoc`` = (surf knn5[, corner knn5]), ``stacks`` = (surf_xyz,
+    surf_mask[, corner_xyz, corner_mask]); F = C_surf (+ 2 C_corner with
+    ``use_corner``: each corner point gives two rows)."""
     coeff_s, _, ok_s = _calculate_features(assoc[0], stacks[0], stacks[1], local_q, local_t, cfg)
-    return stacks[0], coeff_s, ok_s
+    if not cfg.estimator.use_corner:
+        return stacks[0], coeff_s, ok_s
+    c1, c2, _, ok_c = _calculate_corner_features(assoc[1], stacks[2], stacks[3], local_q,
+                                                 local_t, cfg)
+    return (_stack_points(stacks, cfg), torch.cat([coeff_s, c1, c2], dim=0),
+            torch.cat([ok_s, ok_c, ok_c], dim=0))
+
+
+def _stack_points(stacks, cfg: LioConfig):
+    """The point rows of one :func:`_associate_frame` round's layout."""
+    if not cfg.estimator.use_corner:
+        return stacks[0]
+    return torch.cat([stacks[0], stacks[2], stacks[2]], dim=0)
 
 
 def _calculate_laser_odom(assoc, stacks, local_q, local_t, cfg: LioConfig,
@@ -197,7 +249,7 @@ def _calculate_laser_odom(assoc, stacks, local_q, local_t, cfg: LioConfig,
         raise NotImplementedError("sharded mini-GN (multi-GPU) is not ported yet")
     e = cfg.estimator
     dtype, dev = local_t.dtype, local_t.device
-    pts = stacks[0]
+    pts = _stack_points(stacks, cfg)
     n_rows = pts.shape[0]
     coeff_acc = torch.zeros((n_iters, n_rows, 4), dtype=dtype, device=dev)
     ok_acc = torch.zeros((n_iters, n_rows), dtype=torch.bool, device=dev)
@@ -247,9 +299,10 @@ def _push(arr, new):
 
 
 def predict_and_push(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSamples,
-                     cfg: LioConfig):
+                     cfg: LioConfig, corner_cloud: Cloud = None):
     """Steps 1-4: preintegrate the interval, IMU-predicted deskew of the
-    sweep to its end, stack downsample, window push. Returns the pushed
+    sweep to its end (not with ``cutoff_deskew``), stack downsample (the
+    corner cloud too with ``use_corner``), window push. Returns the pushed
     state."""
     e = cfg.estimator
     w = e.window_size
@@ -271,12 +324,19 @@ def predict_and_push(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSa
     t_lb_pose = Pose(state.q_lb, state.t_lb)
     es_laser = t_lb_pose @ body_es @ t_lb_pose.inverse()
 
+    deskew_on = e.enable_deskew and not e.cutoff_deskew
     deskewed = DS.transform_to_end(surf_cloud.xyz, surf_cloud.rel_time, es_laser.q,
-                                   es_laser.t, scan_period, enabled=e.enable_deskew)
+                                   es_laser.t, scan_period, enabled=deskew_on)
     ds_xyz, ds_mask, _ = VX.voxel_downsample(deskewed, surf_cloud.mask, e.surf_filter_size,
                                              e.surf_stack_cap)
-    dc_xyz = torch.zeros((e.corner_state_cap, 3), dtype=dtype, device=dev)
-    dc_mask = torch.zeros((e.corner_state_cap,), dtype=torch.bool, device=dev)
+    if e.use_corner:
+        c_deskewed = DS.transform_to_end(corner_cloud.xyz, corner_cloud.rel_time, es_laser.q,
+                                         es_laser.t, scan_period, enabled=deskew_on)
+        dc_xyz, dc_mask, _ = VX.voxel_downsample(c_deskewed, corner_cloud.mask,
+                                                 e.corner_filter_size, e.corner_stack_cap)
+    else:
+        dc_xyz = torch.zeros((e.corner_state_cap, 3), dtype=dtype, device=dev)
+        dc_mask = torch.zeros((e.corner_state_cap,), dtype=torch.bool, device=dev)
     return state._replace(
         qs=_push(state.qs, q_pred), ps=_push(state.ps, p_pred), vs=_push(state.vs, v_pred),
         bas=_push(state.bas, ba), bgs=_push(state.bgs, bg),
@@ -289,28 +349,41 @@ def predict_and_push(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSa
     )
 
 
+def _relative_to_pivot(qs, ps, st: EstimatorState, pivot: int) -> Pose:
+    """The laser poses of body poses (qs, ps) relative to the pivot's."""
+    lposes = laser_pose(qs, ps, st.q_lb[None, :], st.t_lb[None, :])
+    pinv = Pose(lposes.q[pivot], lposes.t[pivot]).inverse()
+    return Pose(pinv.q[None, :], pinv.t[None, :]) @ lposes
+
+
 def local_map(st: EstimatorState, cfg: LioConfig):
     """Step 5: every window frame's pose relative to the pivot laser frame,
     and the voxel-filtered local map of all frames but the newest, in the
-    pivot frame. Returns (rel Pose (W1,), map_xyz, map_mask)."""
+    pivot frame (with ``fix_map`` at the frozen linearization poses,
+    Estimator.cc:1398-1412). Returns (rel Pose (W1,), maps) with maps =
+    (map_xyz, map_mask[, corner_xyz, corner_mask])."""
     e = cfg.estimator
     w, pivot = e.window_size, e.pivot_idx
-    lposes = laser_pose(st.qs, st.ps, st.q_lb[None, :], st.t_lb[None, :])
-    pivot_pose = Pose(lposes.q[pivot], lposes.t[pivot])
-    pinv = pivot_pose.inverse()
-    rel = Pose(pinv.q[None, :], pinv.t[None, :]) @ lposes
-    map_pts = quat.rotate(rel.q[:, None, :], st.surf_xyz) + rel.t[:, None, :]
-    map_xyz, map_mask, _ = VX.voxel_downsample(
-        map_pts[:w].reshape(-1, 3), st.surf_mask[:w].reshape(-1), e.surf_filter_size,
-        e.local_map_filtered_cap)
-    return rel, map_xyz, map_mask
+    rel = _relative_to_pivot(st.qs, st.ps, st, pivot)
+    rel_map = _relative_to_pivot(st.qs_lin, st.ps_lin, st, pivot) if e.fix_map else rel
+
+    def filtered(xyz, mask, leaf, cap):
+        pts = quat.rotate(rel_map.q[:, None, :], xyz) + rel_map.t[:, None, :]
+        out_xyz, out_mask, _ = VX.voxel_downsample(pts[:w].reshape(-1, 3),
+                                                   mask[:w].reshape(-1), leaf, cap)
+        return out_xyz, out_mask
+
+    maps = filtered(st.surf_xyz, st.surf_mask, e.surf_filter_size, e.local_map_filtered_cap)
+    if e.use_corner:
+        maps += filtered(st.corner_xyz, st.corner_mask, e.corner_filter_size,
+                         e.local_map_corner_cap)
+    return rel, maps
 
 
 def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSamples,
                   cfg: LioConfig, corner_cloud: Cloud = None, axis: str = None,
                   map_shard: bool = False) -> Tuple[EstimatorState, dict]:
     """The full per-sweep estimator step (see the module docstring)."""
-    check_supported(cfg)
     if axis is not None or map_shard:
         raise NotImplementedError("the distributed estimator step (multi-GPU) is not ported yet")
     e = cfg.estimator
@@ -319,11 +392,15 @@ def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSampl
     pivot = e.pivot_idx
     dtype, dev = state.ps.dtype, state.ps.device
 
-    st = predict_and_push(state, surf_cloud, samples, cfg)
-    rel, map_xyz, map_mask = local_map(st, cfg)
-    assoc = (make_knn5(map_xyz, map_mask, cfg),)
+    st = predict_and_push(state, surf_cloud, samples, cfg, corner_cloud)
+    rel, maps = local_map(st, cfg)
+    assoc = (make_knn5(maps[0], maps[1], cfg),)
+    if e.use_corner:
+        assoc += (make_knn5(maps[2], maps[3], cfg, force_tiled=True),)
 
     def frame_stacks(i):
+        if e.use_corner:
+            return (st.surf_xyz[i], st.surf_mask[i], st.corner_xyz[i], st.corner_mask[i])
         return (st.surf_xyz[i], st.surf_mask[i])
 
     # features for frames pivot+1 .. window-1
@@ -443,9 +520,17 @@ def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSampl
     prior_out = tree_map(lambda new, old: torch.where(do_marg, new, old),
                          new_prior, st.prior._replace(valid=prior_in.valid))
 
+    if e.fix_map:
+        # only the newest frame's linearization point moves to its solved
+        # pose (SlideWindow, Estimator.cc:2637-2643)
+        qs_lin, ps_lin = st.qs_lin.clone(), st.ps_lin.clone()
+        qs_lin[w], ps_lin[w] = qs_new[w], ps_new[w]
+    else:
+        qs_lin, ps_lin = qs_new, ps_new
+
     st = st._replace(
         qs=qs_new, ps=ps_new, vs=vs_new, bas=bas_new, bgs=bgs_new,
-        qs_lin=qs_new, ps_lin=ps_new, prior=prior_out,
+        qs_lin=qs_lin, ps_lin=ps_lin, prior=prior_out,
         q_lb=x_opt.ex_q, t_lb=x_opt.ex_p, convergence_flag=convergence_flag)
 
     outputs = {

@@ -121,7 +121,6 @@ class LioPipeline:
         if mesh is not None or map_shard or ingest_shard:
             raise NotImplementedError("the distributed estimator (mesh, map_shard, "
                                       "ingest_shard) is not ported yet")
-        EST.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -289,8 +288,9 @@ class LioPipeline:
                 return {"stage": self.stage, "laser_pose": lp, "predicted": True}
             self._pending = []
             feats = _feats_from_xyzw(cloud(), start_ori, cfg)
+            corner = feats.corner_less_sharp if cfg.estimator.use_corner else None
             self.est_state, out = EST.lio_step_impl(
-                self.est_state, feats.surf_less_flat, self._samples(merged), cfg)
+                self.est_state, feats.surf_less_flat, self._samples(merged), cfg, corner)
             if self.host_predict:
                 self._update_snap(out)
             out["corner_cloud"] = feats.corner_less_sharp
@@ -326,8 +326,9 @@ class LioPipeline:
                     "surf_cloud": odo_out["surf_cloud"]}
         merged = self._merge_pending()
         self._pending = []
+        corner = odo_out["corner_cloud"] if cfg.estimator.use_corner else None
         self.est_state, out = EST.lio_step_impl(
-            self.est_state, odo_out["surf_cloud"], self._samples(merged), cfg)
+            self.est_state, odo_out["surf_cloud"], self._samples(merged), cfg, corner)
         out["stage"] = self.stage
         out["corner_cloud"] = odo_out["corner_cloud"]
         out["surf_cloud"] = odo_out["surf_cloud"]
@@ -368,8 +369,13 @@ class LioPipeline:
         surf: Cloud = odo_out["surf_cloud"]
         ds_xyz, ds_mask, _ = VX.voxel_downsample(surf.xyz, surf.mask, e.surf_filter_size,
                                                  e.surf_stack_cap)
-        dc_xyz = torch.zeros((e.corner_state_cap, 3), dtype=self.dtype, device=self.device)
-        dc_mask = torch.zeros((e.corner_state_cap,), dtype=torch.bool, device=self.device)
+        if e.use_corner:
+            corner: Cloud = odo_out["corner_cloud"]
+            dc_xyz, dc_mask, _ = VX.voxel_downsample(corner.xyz, corner.mask,
+                                                     e.corner_filter_size, e.corner_stack_cap)
+        else:
+            dc_xyz = torch.zeros((e.corner_state_cap, 3), dtype=self.dtype, device=self.device)
+            dc_mask = torch.zeros((e.corner_state_cap,), dtype=torch.bool, device=self.device)
         self._init_stacks.append((ds_xyz, ds_mask, dc_xyz, dc_mask))
 
     def _try_initialize(self) -> bool:

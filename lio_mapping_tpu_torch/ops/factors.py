@@ -1,15 +1,21 @@
 """Factor library: residuals + analytic local-frame Jacobians
-(port of the factors of lio_mapping_tpu.ops.factors that the window solver
-uses). Jacobians are w.r.t. local coordinates: 6 per pose [dp, dtheta],
-9 per speed-bias, with the reference's ``q * DeltaQ(dtheta)`` update.
+(port of lio_mapping_tpu.ops.factors). Jacobians are w.r.t. local
+coordinates: 6 per pose [dp, dtheta], 9 per speed-bias, with the
+reference's ``q * DeltaQ(dtheta)`` update.
 
-Every factor broadcasts over leading batch dimensions (the reference vmaps
-them), so the solver evaluates all frames and features in one call.
+The factors the window solver uses broadcast over leading batch dimensions
+(the reference vmaps them), so the solver evaluates all frames and
+features in one call:
 
 * ``imu_factor``               -> include/factor/ImuFactor.h:44-175
 * ``pivot_point_plane_factor`` -> src/factor/PivotPointPlaneFactor.cc:43-137
 * ``prior_factor``             -> src/factor/PriorFactor.cc:35-67
 * ``cauchy_scaling``           -> Ceres CauchyLoss(1.0), Triggs correction
+
+The reference's unwired alternatives take one factor each, as its own do:
+``point_distance_factor``, ``plane_projection_factor``,
+``point_normal_covariance`` + ``plane_to_plane_factor`` (GICP),
+``imu_gravity_factor`` + ``gravity_boxplus``.
 """
 
 from __future__ import annotations
@@ -187,6 +193,135 @@ def prior_factor(p, q, pos_prior, rot_prior):
     jac = torch.eye(6, dtype=dtype, device=dev)
     jac[3:6, 3:6] = quat.left_matrix(dq)[:3, :3]
     return sqrt_info @ res, sqrt_info @ jac
+
+
+def point_distance_factor(point, coeff, p_i, q_i, t_lb, q_lb, sqrt_info: float = 100.0):
+    """1-dim world-frame point-to-plane residual (PointDistanceFactor.cc:35-105):
+    ``point`` (3,) in frame i's laser coords, ``coeff`` (4,) a world plane
+    [w, b], fixed sqrt_info 100. Returns (residual (), (J_pose (6,), J_ex (6,)))."""
+    q_i = quat.normalize(q_i)
+    q_lb = quat.normalize(q_lb)
+    q_li = quat.qmul(q_i, quat.conjugate(q_lb))
+    p_li = p_i - quat.rotate(q_li, t_lb)
+    w = coeff[:3]
+    residual = w @ (quat.rotate(q_li, point) + p_li) + coeff[3]
+    ri = quat.to_matrix(q_i)
+    rlb = quat.to_matrix(q_lb)
+    skew_pt = quat.skew(rlb.T @ point) - quat.skew(rlb.T @ t_lb)
+    j_pose = torch.cat([w, -w @ ri @ skew_pt])
+    j_ex = torch.cat([-w @ (ri @ rlb.T), w @ ri @ skew_pt])
+    return sqrt_info * residual, (sqrt_info * j_pose, sqrt_info * j_ex)
+
+
+def plane_projection_factor(coeff_i, coeff_j, score, p_i, q_i, p_j, q_j, t_lb, q_lb):
+    """4-dim plane-transport residual (PlaneProjectionFactor.cc:35-148): a
+    plane fitted in frame i's laser coords, moved into frame j and
+    sign-normalised to b >= 0, against the plane fitted in frame j. The
+    Jacobian of the offset w.r.t. P_j is the exact one (the reference's
+    uses Rj^T there, :117). Returns (residual (4,),
+    (J_i (4,6), J_j (4,6), J_ex (4,6)))."""
+    dtype, dev = p_i.dtype, p_i.device
+    ri = quat.to_matrix(quat.normalize(q_i))
+    rj = quat.to_matrix(quat.normalize(q_j))
+    rlb = quat.to_matrix(quat.normalize(q_lb))
+    w_i = coeff_i[:3]
+    v = p_j - p_i - (rj - ri) @ (rlb.T @ t_lb)
+    pi_w = rlb @ rj.T @ ri @ rlb.T @ w_i
+    pi_b = v @ (ri @ (rlb.T @ w_i)) + coeff_i[3]
+    sign = torch.where(pi_b < 0, -1.0, 1.0).to(dtype)
+    residual = score * (sign * torch.cat([pi_w, pi_b[None]]) - coeff_j)
+
+    a = rlb.T @ w_i
+    vv = p_j - p_i - rj @ (rlb.T @ t_lb)
+    j_i = torch.zeros((4, 6), dtype=dtype, device=dev)
+    j_i[3, 0:3] = -w_i @ rlb @ ri.T
+    j_i[0:3, 3:6] = -rlb @ rj.T @ ri @ quat.skew(a)
+    j_i[3, 3:6] = w_i @ rlb @ quat.skew(ri.T @ vv)
+    j_j = torch.zeros((4, 6), dtype=dtype, device=dev)
+    j_j[3, 0:3] = w_i @ rlb @ ri.T
+    j_j[0:3, 3:6] = rlb @ quat.skew(rj.T @ ri @ a)
+    j_j[3, 3:6] = w_i @ rlb @ ri.T @ rj @ quat.skew(rlb.T @ t_lb)
+    j_ex = torch.zeros((4, 6), dtype=dtype, device=dev)
+    j_ex[3, 0:3] = -w_i @ rlb @ ri.T @ (rj - ri) @ rlb.T
+    j_ex[0:3, 3:6] = rlb @ rj.T @ ri @ quat.skew(a) - rlb @ quat.skew(rj.T @ ri @ a)
+    j_ex[3, 3:6] = (-w_i @ rlb @ ri.T @ (rj - ri) @ quat.skew(rlb.T @ t_lb)
+                    - w_i @ rlb @ quat.skew(ri.T @ v))
+    s = score * sign
+    return residual, (s * j_i, s * j_j, s * j_ex)
+
+
+def point_normal_covariance(normal, gicp_epsilon: float = 0.001):
+    """GICP covariance diag(eps, 1, 1) rotated so that x lies along the
+    normal (FeatureManager.h:49-82, FeatureManager.cc:35-43)."""
+    dtype, dev = normal.dtype, normal.device
+    n = normal / torch.linalg.norm(normal)
+    e1 = torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=dev)
+    vx = quat.skew(quat.cross(e1, n))
+    # Rodrigues, the antiparallel case regularised
+    r = torch.eye(3, dtype=dtype, device=dev) + vx + vx @ vx / torch.clamp_min(1.0 + e1 @ n, 1e-8)
+    diag = torch.diag(torch.tensor([gicp_epsilon, 1.0, 1.0], dtype=dtype, device=dev))
+    return r @ diag @ r.T
+
+
+def plane_to_plane_factor(p_b_local, cov_b, p_a_local, cov_a, p_i, q_i, p_j, q_j, t_lb, q_lb):
+    """3-dim GICP plane-to-plane residual (PlaneToPlaneFactor.cc:43-105):
+    point b in frame i's laser coords, point a in frame j's, the frame-i
+    registration error whitened by chol((R C_a R^T + C_b)^-1)^T, which is
+    held constant (Gauss-Newton). Returns (residual (3,),
+    (J_i (3,6), J_j (3,6), J_ex (3,6)))."""
+    ri = quat.to_matrix(quat.normalize(q_i))
+    rj = quat.to_matrix(quat.normalize(q_j))
+    rlb = quat.to_matrix(quat.normalize(q_lb))
+    r_li = ri @ rlb.T
+    p_li = p_i - r_li @ t_lb
+    r_lj = rj @ rlb.T
+    p_lj = p_j - r_lj @ t_lb
+    r_ba = r_li.T @ r_lj
+    err = r_ba @ p_a_local + r_li.T @ (p_lj - p_li) - p_b_local
+
+    m = torch.linalg.inv(r_ba @ cov_a @ r_ba.T + cov_b)
+    sqrt_info = torch.linalg.cholesky(0.5 * (m + m.T)).T.detach()
+
+    u = ri.T @ (r_lj @ p_a_local + p_lj - p_i)
+    pa = quat.skew(rlb.T @ (p_a_local - t_lb))
+    j_i = torch.cat([-rlb @ ri.T, rlb @ quat.skew(u)], dim=1)
+    j_j = torch.cat([rlb @ ri.T, -rlb @ ri.T @ rj @ pa], dim=1)
+    j_ex = torch.cat([torch.eye(3, dtype=p_i.dtype, device=p_i.device) - rlb @ ri.T @ rj @ rlb.T,
+                      -rlb @ quat.skew(u) + rlb @ ri.T @ rj @ pa], dim=1)
+    return sqrt_info @ err, (sqrt_info @ j_i, sqrt_info @ j_j, sqrt_info @ j_ex)
+
+
+def imu_gravity_factor(pre: Preintegration, q_g, g_norm: float, p_i, q_i, v_i, ba_i, bg_i,
+                       p_j, q_j, v_j, ba_j, bg_j, sqrt_info: torch.Tensor | None = None):
+    """The IMU factor with gravity as an S^2 quaternion parameter
+    (ImuGravityFactor.h:44-232, unwired in the reference too): g = R(q_g)
+    (0, 0, -g_norm); the extra Jacobian is w.r.t. the 2-dim tangent of
+    :func:`gravity_boxplus`. Returns (residual (15,), (J_pose_i, J_sb_i,
+    J_pose_j, J_sb_j, J_gravity (15, 2)))."""
+    dtype, dev = p_i.dtype, p_i.device
+    g_i = torch.tensor([0.0, 0.0, -g_norm], dtype=dtype, device=dev)
+    q_g = quat.normalize(q_g)
+    if sqrt_info is None:
+        sqrt_info = sqrt_info_from_covariance(pre.covariance)
+    res_w, (jp_i, jsb_i, jp_j, jsb_j) = imu_factor(
+        pre, quat.rotate(q_g, g_i), p_i, q_i, v_i, ba_i, bg_i, p_j, q_j, v_j, ba_j, bg_j,
+        sqrt_info)
+    # dg/du of q_g <- q_g DeltaQ([u; 0]): -R_wi [GI]x, its first two columns;
+    # the residual carries -g, hence the sign against ImuGravityFactor.h:220-229
+    sum_dt = pre.sum_dt
+    ri_inv = quat.to_matrix(quat.normalize(q_i)).T
+    dg_du = -(quat.to_matrix(q_g) @ quat.skew(g_i))[:, :2]
+    j_g = torch.zeros((15, 2), dtype=dtype, device=dev)
+    j_g[O_P:O_P + 3, :] = -0.5 * sum_dt * sum_dt * ri_inv @ dg_du
+    j_g[O_V:O_V + 3, :] = -sum_dt * ri_inv @ dg_du
+    return res_w, (jp_i, jsb_i, jp_j, jsb_j, sqrt_info @ j_g)
+
+
+def gravity_boxplus(q_g, delta_xy):
+    """S^2 retraction of a gravity quaternion, 4 global / 2 local
+    (GravityLocalParameterization.cc:35-50): q <- q DeltaQ([dx, dy, 0])."""
+    d = torch.cat([delta_xy, torch.zeros(1, dtype=delta_xy.dtype, device=delta_xy.device)])
+    return quat.normalize(quat.qmul(q_g, quat.delta_q(d)))
 
 
 def cauchy_scaling(sq_norm: torch.Tensor, scale: float = 1.0):

@@ -9,8 +9,10 @@ with dt=0 padding (a dt=0 step is an exact no-op).
 ``integrate`` is the batched form: the quaternion chain and the F products
 are log-depth prefix scans (Hillis-Steele over the sample axis), the
 velocity/position deltas cumulative sums, the covariance one suffix-
-transported einsum; it equals the sequential recursion up to rounding.
-The Euler scheme is not ported.
+transported einsum; it equals the sequential recursion
+(``integrate_sequential``, one ``midpoint_step`` per sample) up to
+rounding. ``integrate_euler`` is the reference's first-order alternative
+scheme (IntegrationBase.h:211-276), a Python loop over samples.
 """
 
 from __future__ import annotations
@@ -253,10 +255,101 @@ def integrate_mean(samples: ImuSamples, ba, bg) -> Preintegration:
         sum_dt=torch.sum(samples.dt), linearized_ba=ba, linearized_bg=bg)
 
 
+def midpoint_step(state: Preintegration, dt, acc0, gyr0, acc1, gyr1,
+                  noise18) -> Preintegration:
+    """One midpoint integration step (IntegrationBase.h:127-209)."""
+    ba, bg = state.linearized_ba, state.linearized_bg
+    un_acc_0 = quat.rotate(state.delta_q, acc0 - ba)
+    un_gyr = 0.5 * (gyr0 + gyr1) - bg
+    dq_new = quat.qmul(state.delta_q, quat.delta_q(un_gyr * dt))
+    un_acc = 0.5 * (un_acc_0 + quat.rotate(dq_new, acc1 - ba))
+    rot0 = quat.to_matrix(state.delta_q)
+    rot1 = quat.to_matrix(quat.normalize(dq_new))
+    f, g = _step_matrices(dt.reshape(1), rot0[None], rot1[None], un_gyr[None],
+                          (acc0 - ba)[None], (acc1 - ba)[None], noise18)
+    f, g = f[0], g[0]
+    return Preintegration(
+        delta_p=state.delta_p + state.delta_v * dt + 0.5 * un_acc * dt * dt,
+        delta_q=quat.normalize(dq_new), delta_v=state.delta_v + un_acc * dt,
+        jacobian=f @ state.jacobian, covariance=f @ state.covariance @ f.T + g,
+        sum_dt=state.sum_dt + dt, linearized_ba=ba, linearized_bg=bg)
+
+
+def integrate_sequential(samples: ImuSamples, ba, bg, noise18) -> Preintegration:
+    """The literal transcription of the reference recursion (its Propagate
+    loop), one :func:`midpoint_step` per sample: the ground truth that
+    :func:`integrate` is held against. A padding row (dt = 0) is a no-op
+    and keeps the previous sample."""
+    state = Preintegration.identity(samples.dt.dtype, samples.dt.device)._replace(
+        linearized_ba=ba, linearized_bg=bg)
+    acc_prev, gyr_prev = samples.acc0, samples.gyr0
+    for k in range(samples.dt.shape[0]):
+        dt, acc1, gyr1 = samples.dt[k], samples.acc[k], samples.gyr[k]
+        state = midpoint_step(state, dt, acc_prev, gyr_prev, acc1, gyr1, noise18)
+        is_pad = dt == 0
+        acc_prev = torch.where(is_pad, acc_prev, acc1)
+        gyr_prev = torch.where(is_pad, gyr_prev, gyr1)
+    return state
+
+
+def noise_matrix_euler(acc_n: float, gyr_n: float, acc_w: float, gyr_w: float,
+                       dtype=torch.float32, device=None) -> torch.Tensor:
+    """12x12 noise diag of the Euler scheme (IntegrationBase.h:260-265)."""
+    d = [acc_n**2] * 3 + [gyr_n**2] * 3 + [acc_w**2] * 3 + [gyr_w**2] * 3
+    return torch.diag(torch.tensor(d, dtype=dtype, device=device))
+
+
+def euler_step(state: Preintegration, dt, acc1, gyr1, noise12) -> Preintegration:
+    """One first-order Euler step (IntegrationBase.h:211-276): endpoint
+    samples, continuous A (15x15) / U (15x12) discretised as F = I + dt A,
+    V = dt U. Like the reference, the accumulated quaternion is not
+    normalised per step."""
+    dtype, dev = state.delta_p.dtype, state.delta_p.device
+    ba, bg = state.linearized_ba, state.linearized_bg
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    a_b = acc1 - ba
+    acc_r = quat.rotate(state.delta_q, a_b)
+    omg = (gyr1 - bg) * dt / 2
+    # unnormalised first-order increment (1, omg), [w, x, y, z]
+    dq_new = quat.qmul(state.delta_q, torch.cat([torch.ones(1, dtype=dtype, device=dev), omg]))
+
+    r_w_x = quat.skew(gyr1 - bg)
+    r_a_x = quat.skew(a_b)
+    rot = quat.to_matrix(state.delta_q)
+    a = torch.zeros((15, 15), dtype=dtype, device=dev)
+    a[O_P:O_P + 3, O_R:O_R + 3] = -0.5 * rot @ r_a_x * dt
+    a[O_P:O_P + 3, O_V:O_V + 3] = eye3
+    a[O_P:O_P + 3, O_BA:O_BA + 3] = -0.5 * rot * dt
+    a[O_R:O_R + 3, O_R:O_R + 3] = -r_w_x
+    a[O_R:O_R + 3, O_BG:O_BG + 3] = -eye3
+    a[O_V:O_V + 3, O_R:O_R + 3] = -rot @ r_a_x
+    a[O_V:O_V + 3, O_BA:O_BA + 3] = -rot
+    u = torch.zeros((15, 12), dtype=dtype, device=dev)
+    u[O_P:O_P + 3, 0:3] = 0.5 * rot * dt
+    u[O_R:O_R + 3, 3:6] = eye3
+    u[O_V:O_V + 3, 0:3] = rot
+    u[O_BA:O_BA + 3, 6:9] = eye3
+    u[O_BG:O_BG + 3, 9:12] = eye3
+
+    f = torch.eye(15, dtype=dtype, device=dev) + dt * a
+    v = dt * u
+    return Preintegration(
+        delta_p=state.delta_p + state.delta_v * dt + 0.5 * acc_r * dt * dt,
+        delta_q=dq_new, delta_v=state.delta_v + acc_r * dt,
+        jacobian=f @ state.jacobian, covariance=f @ state.covariance @ f.T + v @ noise12 @ v.T,
+        sum_dt=state.sum_dt + dt, linearized_ba=ba, linearized_bg=bg)
+
+
 def integrate_euler(samples: ImuSamples, ba, bg, noise12) -> Preintegration:
-    """The first-order Euler scheme (reference preintegration.py:475-553):
-    not ported yet."""
-    raise NotImplementedError("the Euler preintegration scheme is not ported yet")
+    """Full-buffer first-order Euler integration (the reference's
+    alternative scheme), one :func:`euler_step` per sample; dt = 0 padding
+    rows are no-ops (F = I, V = 0). The quaternion is normalised once, at
+    the end."""
+    state = Preintegration.identity(samples.dt.dtype, samples.dt.device)._replace(
+        linearized_ba=ba, linearized_bg=bg)
+    for k in range(samples.dt.shape[0]):
+        state = euler_step(state, samples.dt[k], samples.acc[k], samples.gyr[k], noise12)
+    return state._replace(delta_q=quat.normalize(state.delta_q))
 
 
 def state_at_offset(prefixes: PrefixStates, t_offset, q0, p0, v0, g_vec):

@@ -5,8 +5,10 @@ reference's (``lio_mapping_tpu.cli``), on the CPU.
   ``evaluate`` prints the same lines.
 * The host loop of ``run`` (measurement queue, 4096-row padding, boundary
   interpolation, prefetch gating) hands the pipeline the same sweeps, masks
-  and packed IMU buffers, bit for bit: a recording stub stands in for each
-  package's pipeline, so no JAX program runs.
+  and packed IMU buffers, bit for bit, and with ``--enable-4d`` the 4D map
+  builder the same clouds and poses on the same sweeps: recording stubs
+  stand in for each package's pipeline and builder step, so no JAX
+  program runs.
 * ``run --device cpu`` over a short log with the reference's small YAML
   profile (``tests/test_cli_e2e.SMALL_PROFILE``, plus the every-sweep
   cadence and the narrow feature capacities of
@@ -135,28 +137,70 @@ def _stub(real, record):
             self.frame_count += 1
             if self.frame_count == 4:
                 self.stage = "INITED"
-            return {"stage": self.stage, "laser_pose": _Pose(self.frame_count)}
+            out = {"stage": self.stage, "laser_pose": _Pose(self.frame_count),
+                   "corner_cloud": ("corner", self.frame_count),
+                   "surf_cloud": ("surf", self.frame_count)}
+            if self.stage == "INITED" and not self._is_compact(self.frame_count):
+                out["predicted"] = True
+            return out
 
     return Stub
 
 
-@pytest.mark.parametrize("mode,self_filter", [("lio", False), ("loam", False), ("lio", True)],
-                         ids=["lio", "loam", "lio-self-filter"])
+def _builder_stub(record):
+    """Records what the host loop hands the 4D builder step; returns the
+    odometry pose moved by 1 cm as the refined one."""
+    def step(state, corner_cloud, surf_cloud, odom_pose, cfg):
+        record.append((corner_cloud, surf_cloud, np.array(odom_pose.t)))
+        refined = _Pose(0)
+        refined.t = np.array(odom_pose.t) + 0.01
+        return state, {"pose": refined}
+    return step
+
+
+@pytest.mark.parametrize("mode,self_filter,four_d",
+                         [("lio", False, False), ("loam", False, False), ("lio", True, False),
+                          ("lio", False, True)],
+                         ids=["lio", "loam", "lio-self-filter", "lio-4d"])
 def test_run_host_loop_feeds_the_same_inputs(seq, tmp_path, monkeypatch, capsys, mode,
-                                             self_filter):
+                                             self_filter, four_d):
+    from lio_mapping_tpu.models import map_builder as JMB
     from lio_mapping_tpu.models import pipeline as JPL
+    from lio_mapping_tpu_torch.models import map_builder as TMB
     from lio_mapping_tpu_torch.models import pipeline as TPL
 
     rec_j, rec_t = [], []
+    mb_j, mb_t = [], []
     name = "LioPipeline" if mode == "lio" else "LoamPipeline"
     monkeypatch.setattr(JPL, name, _stub(JPL.LioPipeline, rec_j))
     monkeypatch.setattr(TPL, name, _stub(TPL.LioPipeline, rec_t))
+    monkeypatch.setattr(JMB, "map_builder_step", _builder_stub(mb_j))
+    monkeypatch.setattr(TMB, "map_builder_step", _builder_stub(mb_t))
     common = ["run", "--log", seq["log"], "--profile", "indoor", "--mode", mode]
     if self_filter:
         common.append("--self-filter")
-    assert JCLI.main(common + ["--out", str(tmp_path / "r.tum")]) == 0
-    assert TCLI.main(common + ["--out", str(tmp_path / "p.tum"), "--device", "cpu"]) == 0
+    extra_j = extra_t = []
+    if four_d:
+        extra_j = ["--enable-4d", "--out-4d", str(tmp_path / "r4.tum")]
+        extra_t = ["--enable-4d", "--out-4d", str(tmp_path / "p4.tum")]
+    assert JCLI.main(common + ["--out", str(tmp_path / "r.tum")] + extra_j) == 0
+    ref_out = capsys.readouterr().out
+    assert TCLI.main(common + ["--out", str(tmp_path / "p.tum"), "--device", "cpu"]
+                     + extra_t) == 0
+    port_out = capsys.readouterr().out
     assert (tmp_path / "r.tum").read_bytes() == (tmp_path / "p.tum").read_bytes()
+    if four_d:
+        # the builder runs on the INITED sweeps the estimator consumed, with
+        # their clouds and newest laser pose, and its poses are written
+        assert len(mb_t) == len(mb_j)
+        assert [(c, s) for c, s, _ in mb_t] == [(c, s) for c, s, _ in mb_j]
+        for (_, _, a), (_, _, b) in zip(mb_t, mb_j):
+            np.testing.assert_array_equal(a, b)
+        assert [c[1] for c, _, _ in mb_t] == [5, 7, 9, 11, 13]
+        assert (tmp_path / "r4.tum").read_bytes() == (tmp_path / "p4.tum").read_bytes()
+        assert "wrote 5 4D-refined poses" in port_out and "wrote 5 4D-refined poses" in ref_out
+    else:
+        assert not mb_t and not mb_j
 
     assert len(rec_t) == len(rec_j) == N_SWEEPS - 1
     for i, (a, b) in enumerate(zip(rec_t, rec_j)):
@@ -261,8 +305,7 @@ def test_refused_combinations(tmp_path, capsys):
     assert "mutually exclusive" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--enable-4d"], ["--out-4d", "x.tum"], ["--mesh", "2"],
-                                  ["--map-shard"], ["--ingest-shard"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--map-shard"], ["--ingest-shard"]])
 def test_unported_flags_exit_2(tmp_path, capsys, flag):
     rc = TCLI.main(["run", "--log", str(tmp_path / "missing.liol"),
                     "--out", str(tmp_path / "t.tum"), "--device", "cpu"] + flag)

@@ -233,15 +233,12 @@ def test_kernel_is_deterministic(dev, gate):
         np.testing.assert_array_equal(x.view(np.uint8), y.view(np.uint8))
 
 
-@pytest.mark.cuda
-def test_kernel_at_the_scan_to_map_shape(dev):
-    """LOAM's scan-to-map surf search: 6144 queries against the 65536-point
-    map store (32 chunks), k = 5, the 1 m^2 gate. The map is a voxel store
-    (valid rows a prefix, sorted by x as the wide keys sort it), the queries
-    a voxel-filtered stack: gated rows exact, the flags ``prune_flags``."""
-    rng = np.random.default_rng(21)
-    n_q, n_m, k, gate = 6144, 65536, 5, 1.0
-    q, qm, db, dm = _clustered(rng, n_m=40000, n_q=2500)
+def _check_gated_at(dev, rng, n_q, n_m, n_valid_q, n_valid_m):
+    """A voxel store's shape (valid rows a prefix, sorted by x as the keys
+    sort it) against a voxel-filtered stack, k = 5, the 1 m^2 gate: gated
+    rows exact, the flags ``prune_flags``. Returns the flags' shape."""
+    k, gate = 5, 1.0
+    q, qm, db, dm = _clustered(rng, n_m=n_valid_m, n_q=n_valid_q)
     db = np.concatenate([db, np.zeros((n_m - len(db), 3), np.float32)])
     dm = np.concatenate([dm, np.zeros(n_m - len(dm), bool)])
     q = np.concatenate([q, np.zeros((n_q - len(q), 3), np.float32)])
@@ -250,7 +247,6 @@ def test_kernel_at_the_scan_to_map_shape(dev):
     gd, gi, flags = TKK.search(*args, k=k, prune_beyond=gate)
     want = TKK.prune_flags(*args, gate)
     np.testing.assert_array_equal(flags.cpu().numpy(), want.cpu().numpy())
-    assert flags.shape == (24, 32)
     rd, ri = TK.knn_tiled(*args, k=k)
     gd, gi, rd, ri = (x.cpu().numpy() for x in (gd, gi, rd, ri))
     tol = _tol(q, db)
@@ -262,3 +258,19 @@ def test_kernel_at_the_scan_to_map_shape(dev):
     np.testing.assert_allclose(gd[rows], rd[rows], atol=tol, rtol=0)
     np.testing.assert_allclose(_d64(q, db, gi)[rows], _d64(q, db, ri)[rows], atol=2 * tol,
                                rtol=0)
+    return tuple(flags.shape)
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_scan_to_map_shape(dev):
+    """LOAM's scan-to-map surf search: 6144 queries against the 65536-point
+    map store (32 chunks)."""
+    assert _check_gated_at(dev, np.random.default_rng(21), 6144, 65536, 2500, 40000) == (24, 32)
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_outdoor64_estimator_shape(dev):
+    """The outdoor_64 estimator's surf search: 8192 queries (one HDL-64
+    stack) against the 32768-row filtered local map (32 query blocks, 16
+    chunks), the local map mostly full."""
+    assert _check_gated_at(dev, np.random.default_rng(64), 8192, 32768, 3500, 30000) == (32, 16)

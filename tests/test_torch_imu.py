@@ -171,3 +171,54 @@ def test_propagate_world_matches():
     want = JE.propagate_world(*(jnp.asarray(a) for a in args),
                               JPI.unpack_samples(jnp.asarray(packed)))
     _close(got, want, 1e-12)
+
+
+SCHEMES = {"sequential": ("integrate_sequential", "noise_matrix"),
+           "euler": ("integrate_euler", "noise_matrix_euler")}
+
+
+@pytest.mark.parametrize("scheme", list(SCHEMES))
+@pytest.mark.parametrize("dtype,atol,rtol", DT, ids=IDS)
+def test_sequential_and_euler_schemes_match(rng, scheme, dtype, atol, rtol):
+    """The per-sample recursions (a Python loop in the port, a scan in the
+    reference): the midpoint transcription and the first-order Euler
+    scheme, on a padded buffer with biases."""
+    fn, noise = SCHEMES[scheme]
+    (dts, acc, gyr, a0, w0), cap = _packed()
+    packed = TPI.pack_samples_np(dts, acc, gyr, a0, w0, cap).astype(dtype)
+    ba, bg = (rng.normal(size=3) * 0.05).astype(dtype), (rng.normal(size=3) * 0.005).astype(dtype)
+    jn = getattr(JPI, noise)(*NOISE, jnp.dtype(dtype))
+    tn = getattr(TPI, noise)(*NOISE, torch.float64 if dtype == np.float64 else torch.float32)
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    want = getattr(JPI, fn)(JPI.unpack_samples(jnp.asarray(packed)), jnp.asarray(ba),
+                            jnp.asarray(bg), jn)
+    got = getattr(TPI, fn)(TPI.unpack_samples(torch.as_tensor(packed)), torch.as_tensor(ba),
+                           torch.as_tensor(bg), tn)
+    for name in TPI.Preintegration._fields:
+        a, b = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        scale = np.max(np.abs(b)) if name in ("covariance", "jacobian") else 1.0
+        np.testing.assert_allclose(a, b, atol=max(atol, rtol * scale), rtol=0, err_msg=name)
+
+
+def test_euler_scheme_agrees_with_midpoint():
+    """The reference's own check (tests/test_preintegration.py:181) on the
+    port: Euler and midpoint agree to first order on a smooth trajectory,
+    and the Euler covariance is PSD; the batched midpoint equals the
+    sequential one."""
+    traj = synthetic.Trajectory()  # the reference test's trajectory and span
+    ts, acc, gyr = synthetic.simulate_imu_interval(traj, 0.3, 0.8, 200.0)
+    a0, w0 = traj.imu(0.3)
+    dts = np.diff(np.concatenate([[0.3], ts]))
+    s = TPI.unpack_samples(torch.as_tensor(
+        TPI.pack_samples_np(dts, acc, gyr, a0, w0, len(ts)).astype(np.float64)))
+    z = torch.zeros(3, dtype=torch.float64)
+    mid = TPI.integrate(s, z, z, TPI.noise_matrix(*NOISE, torch.float64))
+    seq = TPI.integrate_sequential(s, z, z, TPI.noise_matrix(*NOISE, torch.float64))
+    eu = TPI.integrate_euler(s, z, z, TPI.noise_matrix_euler(*NOISE, torch.float64))
+    _close(mid[:3], seq[:3], 1e-12)
+    assert abs(float(torch.dot(eu.delta_q, mid.delta_q))) > 1 - 1e-6
+    np.testing.assert_allclose(eu.delta_p.numpy(), mid.delta_p.numpy(), atol=2e-2)
+    np.testing.assert_allclose(eu.delta_v.numpy(), mid.delta_v.numpy(), atol=5e-2)
+    assert float(eu.sum_dt) == pytest.approx(float(mid.sum_dt), abs=1e-14)
+    cov = eu.covariance.numpy()
+    assert np.linalg.eigvalsh(0.5 * (cov + cov.T)).min() > -1e-16

@@ -250,22 +250,12 @@ def test_pipeline_runs_on_the_card_unless_told_otherwise():
     assert TPipe(cfg, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("flag", ["use_corner", "fix_map", "cutoff_deskew"])
-def test_unported_variants_raise(flag):
-    cfg = port_cfg(small_cfg())
-    cfg = dataclasses.replace(cfg, estimator=dataclasses.replace(cfg.estimator, **{flag: True}))
-    with pytest.raises(NotImplementedError, match=flag):
-        TPipe(cfg, device="cpu")
-
-
 def test_unported_entry_points_raise():
-    """The device mesh and the Euler preintegration are not ported yet."""
+    """The device mesh is not ported yet."""
     cfg = port_cfg(small_cfg())
     for kw in ({"mesh": object()}, {"map_shard": True}, {"ingest_shard": True}):
         with pytest.raises(NotImplementedError, match="distributed"):
             TPipe(cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        TPI.integrate_euler(None, None, None, None)
 
 
 def test_prefetched_cloud_gives_the_same_sweep():

@@ -390,3 +390,145 @@ def test_solve_window_f32(use_marg):
     for name, tol in (("q", tol_qp), ("p", tol_qp), ("sb", tol_sb)):
         _close(getattr(tx, name), getattr(jx, name), tol, msg=name)
     check_marg(jx, jprior, tprior)
+
+
+def _edges(rng, n=200, k=5):
+    """Noisy 5-point runs along random lines (corner neighbourhoods), some
+    of them blobs that the line-fit gate must refuse."""
+    c = rng.normal(size=(n, 3)) * 5
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    s = rng.uniform(-0.4, 0.4, size=(n, k, 1))
+    pts = c[:, None] + s * u[:, None] + rng.normal(scale=0.02, size=(n, k, 3))
+    pts[: n // 4] += rng.normal(scale=0.3, size=(n // 4, k, 3))
+    return pts
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-9), (np.float32, 1e-3)],
+                         ids=["f64", "f32"])
+def test_corner_fits_match(rng, dtype, tol):
+    """The corner association's fits on edge-like neighbourhoods: the
+    ``l_max > 3 l_mid`` gate decides alike, and ``eig3x3_descending`` (a
+    general eigh, ascending as the reference's) agrees on the same
+    covariances."""
+    pts = _edges(rng).astype(dtype)
+    valid = rng.random(len(pts)) > 0.1
+    tc, tdir, tok = TFI.line_fit(_t(pts), _t(valid))
+    jc, jdir, jok = JFI.line_fit(jnp.asarray(pts), jnp.asarray(valid))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    ok = np.asarray(jok)
+    assert 0.4 < ok.mean() < 0.9  # both outcomes of the gate are exercised
+    _close(tc, jc, tol)
+    sgn = np.sign(np.sum(tdir.numpy() * np.asarray(jdir), -1, keepdims=True))
+    _close(tdir.numpy()[ok] * sgn[ok], np.asarray(jdir)[ok], tol * 10)
+    p = (pts[:, 0] + rng.normal(size=(len(pts), 3)) * 0.3).astype(dtype)
+    tld, tn = TFI.point_to_line_residual(_t(p), tc, tdir)
+    jld, jn = JFI.point_to_line_residual(jnp.asarray(p), jnp.asarray(tc.numpy()),
+                                         jnp.asarray(tdir.numpy()))
+    _close(tld, jld, tol)
+    _close(tn, jn, tol * 10)
+
+    dev = pts - pts.mean(1, keepdims=True)
+    cov = (np.einsum("nki,nkj->nij", dev, dev) / pts.shape[1]).astype(dtype)
+    tv, tvec = TFI.eig3x3_descending(_t(cov))
+    jv, jvec = JFI.eig3x3_descending(jnp.asarray(cov))
+    scale = np.max(np.abs(np.asarray(jv)))
+    _close(tv, jv, tol * scale)
+    sep = np.min(np.diff(np.asarray(jv), axis=-1), axis=-1) > 1e-3 * scale
+    _cols_up_to_sign(tvec.numpy()[sep], np.asarray(jvec)[sep], tol * 100)
+
+
+def _pose(rng, rot_scale=0.5):
+    return _t(rng.normal(size=3)), _rand_q(rng, rot_scale)
+
+
+def _unwired_case(rng, name):
+    """(port factor, reference factor, inputs, perturbed(dx) -> port inputs,
+    local dims, Jacobian column blocks) for one unwired factor."""
+    t_lb, q_lb = _t(rng.normal(size=3) * 0.1), _rand_q(rng, 0.2)
+    if name == "point_distance":
+        w = rng.normal(size=3)
+        args = [_t(rng.normal(size=3)), _t(np.concatenate([w / np.linalg.norm(w), [0.7]])),
+                *_pose(rng), t_lb, q_lb]
+        moved = [(2, 3), (4, 5)]
+    elif name == "plane_projection":
+        wi, wj = rng.normal(size=3), rng.normal(size=3)
+        args = [_t(np.concatenate([wi / np.linalg.norm(wi), [1.1]])),
+                _t(np.concatenate([wj / np.linalg.norm(wj), [0.8]])), 2.5,
+                *_pose(rng, 0.3), *_pose(rng, 0.3), t_lb, q_lb]
+        moved = [(3, 4), (5, 6), (7, 8)]
+    elif name == "plane_to_plane":
+        nb, na = rng.normal(size=3), rng.normal(size=3)
+        cov_b = TFA.point_normal_covariance(_t(nb / np.linalg.norm(nb)))
+        cov_a = TFA.point_normal_covariance(_t(na / np.linalg.norm(na)))
+        for n, c in ((nb, cov_b), (na, cov_a)):
+            _close(c, JFA.point_normal_covariance(jnp.asarray(n / np.linalg.norm(n))), 1e-12)
+        _close(TFA.point_normal_covariance(_t([-1.0, 0.0, 0.0])),
+               JFA.point_normal_covariance(jnp.asarray([-1.0, 0.0, 0.0])), 1e-12)
+        args = [_t(rng.normal(size=3)), cov_b, _t(rng.normal(size=3)), cov_a,
+                *_pose(rng, 0.3), *_pose(rng, 0.3), t_lb, q_lb]
+        moved = [(4, 5), (6, 7), (8, 9)]
+    return args, moved
+
+
+@pytest.mark.parametrize("name", ["point_distance", "plane_projection", "plane_to_plane",
+                                  "imu_gravity", "gravity_boxplus"])
+def test_unwired_factors_match_and_jacobians(rng, name):
+    """The reference's unwired factors (tests/test_factors.py,
+    tests/test_preintegration.py:346-367) on seeded inputs, float64: the
+    residual and every Jacobian equal the reference's within 1e-9, and the
+    analytic Jacobians equal ``torch.func.jacfwd`` over the local
+    coordinates [dp, dtheta] within 1e-8."""
+    if name == "gravity_boxplus":
+        q_g, d = _rand_q(rng, 0.3), _t(rng.normal(size=2) * 0.05)
+        got = TFA.gravity_boxplus(q_g, d)
+        _close(got, JFA.gravity_boxplus(jnp.asarray(q_g.numpy()), jnp.asarray(d.numpy())), 1e-12)
+        # a unit quaternion that moved about x and y only
+        dq = tq.qmul(tq.conjugate(q_g), got)
+        assert abs(float(torch.linalg.norm(got)) - 1.0) < 1e-12 and abs(float(dq[3])) < 1e-12
+        return
+    if name == "imu_gravity":
+        x_gt, pres, _ = _make_window_problem()
+        jpre = jax.tree.map(lambda a: a[1], pres)
+        pre = _port(jpre, TPI.Preintegration)
+        z = torch.zeros(3, dtype=F64)
+        states = (_t(x_gt.p[1]), _t(x_gt.q[1]), _t(x_gt.sb[1, :3]), z, z,
+                  _t(x_gt.p[2]), _t(x_gt.q[2]), _t(x_gt.sb[2, :3]), z, z)
+        q_g = _rand_q(rng, 0.05)
+        res, jacs = TFA.imu_gravity_factor(pre, q_g, G, *states)
+        jres, jjacs = JFA.imu_gravity_factor(jpre, jnp.asarray(q_g.numpy()), G,
+                                             *(jnp.asarray(s.numpy()) for s in states))
+        _close(res, jres, 1e-8, rtol=1e-9)
+        for a, b in zip(jacs, jjacs):
+            _close(a, b, 1e-7, rtol=1e-9)
+        # the first four blocks are the IMU factor's at the rotated gravity
+        gvec = tq.rotate(q_g, torch.tensor([0.0, 0.0, -G], dtype=F64))
+        for a, b in zip(jacs[:4], TFA.imu_factor(pre, gvec, *states)[1]):
+            _close(a, b, 0.0)
+        sqrt_info = TFA.sqrt_info_from_covariance(pre.covariance)
+        j_num = _jac_fd(lambda dxy: sqrt_info @ TPI.evaluate(
+            pre, tq.rotate(TFA.gravity_boxplus(q_g, dxy),
+                           torch.tensor([0.0, 0.0, -G], dtype=F64)), *states), 2).numpy()
+        err = np.abs(jacs[4].numpy() - j_num) / (1.0 + np.abs(j_num))
+        assert err.max() < 1e-6, err.max()
+        return
+
+    args, moved = _unwired_case(rng, name)
+    fn, jfn = getattr(TFA, f"{name}_factor"), getattr(JFA, f"{name}_factor")
+    res, jacs = fn(*args)
+    jres, jjacs = jfn(*(a if isinstance(a, float) else jnp.asarray(a.numpy()) for a in args))
+    _close(res, jres, 1e-9)
+    for a, b in zip(jacs, jjacs):
+        _close(a, b, 1e-9)
+
+    def f(dx):
+        x = list(args)
+        for k, (ip, iq) in enumerate(moved):
+            x[ip] = args[ip] + dx[6 * k:6 * k + 3]
+            x[iq] = tq.qmul(args[iq], tq.exp(dx[6 * k + 3:6 * k + 6]))
+        return fn(*x)[0]
+
+    j_num = _jac_fd(f, 6 * len(moved)).numpy()
+    j_num = j_num.reshape(-1, 6 * len(moved))
+    for k, ja in enumerate(jacs):
+        _close(ja.reshape(-1, 6), j_num[:, 6 * k:6 * k + 6], 1e-8)

@@ -1,19 +1,43 @@
-"""Accuracy reference for the PyTorch port: the JAX package's LioPipeline,
-indoor profile, float32, on the CPU, over the sequence ``chip_smoke.py``
-drives the port with (90 simulated sweeps, ``cli simulate`` defaults:
-azimuth 900, pitch_amp 0.4, roll_amp 0.35, rp_freq 0.45, IMU 200 Hz; each
-sweep paired with its own IMU interval as tests/test_lio_pipeline.py does).
+"""Accuracy references for the PyTorch port: the JAX package on the CPU in
+float32, on exactly the sequences ``chip_smoke.py`` drives the port with.
 
-Prints one JSON line: the stage at the end, the sweep at which the
-pipeline went INITED, and ATE/RPE from ``io.evaluation``.
+In-process (``LioPipeline``, each sweep paired with its own IMU interval as
+tests/test_lio_pipeline.py does, IMU 200 Hz, azimuth 900):
 
-Usage: JAX_PLATFORMS=cpu python tools/reference_ate_cpu.py [--sweeps 90]
+* ``--profile indoor`` (default): 90 sweeps of the ``cli simulate``
+  defaults (pitch_amp 0.4, roll_amp 0.35, rp_freq 0.45); ``--use-corner``
+  and ``--fix-map`` turn on the estimator variants at the shipped corner
+  capacities.
+* ``--profile outdoor_64``: 60 sweeps of ``bench.py``'s sequence (its
+  analytic trajectory, 64 rings at the HDL-64 angles) with its two
+  synthetic-rig concessions, identity ``extrinsic_rotation`` and zero
+  ``extrinsic_translation``.
+
+Through the JAX package's CLI (``simulate``, ``run``, then the ATE of
+``evaluate``), in a temporary directory:
+
+* ``--cli-4d``: ``run --profile indoor --enable-4d --out-4d`` on the
+  90-sweep ``simulate`` log; the ATE of the LIO and of the 4D trajectory.
+* ``--cli-outdoor``: ``simulate --extrinsic-translation -2.4 0 0.7`` (the
+  KAIST rig offset), then ``run --profile outdoor``.
+
+Prints one JSON line: the stage at the end, the sweep at which the pipeline
+went INITED, consumed INITED sweeps, ATE/RPE from ``io.evaluation`` and the
+run time.
+
+Usage: JAX_PLATFORMS=cpu python tools/reference_ate_cpu.py [--profile P]
+       [--use-corner] [--fix-map] [--sweeps N] [--cli-4d | --cli-outdoor]
 """
 
 import argparse
+import contextlib
+import dataclasses
+import io
 import json
 import os
+import re
 import sys
+import tempfile
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -26,6 +50,7 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from lio_mapping_tpu import cli  # noqa: E402
 from lio_mapping_tpu.config import LioConfig  # noqa: E402
 from lio_mapping_tpu.io import evaluation, synthetic  # noqa: E402
 from lio_mapping_tpu.models.pipeline import LioPipeline  # noqa: E402
@@ -34,18 +59,33 @@ SCAN_DT = 0.1
 IMU_RATE = 200.0
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--sweeps", type=int, default=90)
-    args = ap.parse_args()
+def build_cfg(profile: str, use_corner: bool, fix_map: bool):
+    if profile == "outdoor_64":
+        base = LioConfig.outdoor_64()
+        est = dataclasses.replace(base.estimator, extrinsic_rotation=(1, 0, 0, 0, 1, 0, 0, 0, 1),
+                                  extrinsic_translation=(0.0, 0.0, 0.0))
+        return dataclasses.replace(base, estimator=est)
+    base = LioConfig.indoor()
+    est = dataclasses.replace(base.estimator, use_corner=use_corner, fix_map=fix_map)
+    return dataclasses.replace(base, estimator=est)
 
-    traj = synthetic.Trajectory(pitch_amp=0.4, roll_amp=0.35, rp_freq=0.45)
-    pipe = LioPipeline(LioConfig.indoor(), dtype=jnp.float32)
-    qs, ps, times, stages = [], [], [], []
+
+def in_process(args):
+    cfg = build_cfg(args.profile, args.use_corner, args.fix_map)
+    if args.profile == "outdoor_64":
+        traj = synthetic.Trajectory(g_norm=cfg.estimator.imu.g_norm)
+        rings = dict(n_rings=cfg.sensor.n_rings, lower_deg=cfg.sensor.lower_bound_deg,
+                     upper_deg=cfg.sensor.upper_bound_deg)
+    else:
+        traj = synthetic.Trajectory(pitch_amp=0.4, roll_amp=0.35, rp_freq=0.45)
+        rings = {}
+    n_sweeps = args.sweeps or (60 if args.profile == "outdoor_64" else 90)
+    pipe = LioPipeline(cfg, dtype=jnp.float32)
+    qs, ps, times, stages, consumed = [], [], [], [], 0
     t_run = time.perf_counter()
-    for i in range(args.sweeps):
+    for i in range(n_sweeps):
         t0 = i * SCAN_DT
-        xyz, mask = synthetic.simulate_sweep(traj, t0, n_azimuth=900)
+        xyz, mask = synthetic.simulate_sweep(traj, t0, n_azimuth=900, **rings)
         ts, acc, gyr = synthetic.simulate_imu_interval(traj, t0, t0 + SCAN_DT, IMU_RATE)
         a0, w0 = traj.imu(t0)
         dts = np.diff(np.concatenate([[t0], ts]))
@@ -54,16 +94,72 @@ def main():
         ps.append(np.asarray(out["laser_pose"].t, np.float64))
         times.append(t0 + SCAN_DT)
         stages.append(out["stage"])
+        consumed += int(out["stage"] == "INITED" and "body_pose" in out)
     gt = [synthetic.gt_sensor_pose(traj, t) for t in times]
     m = evaluation.evaluate_trajectory(np.stack(qs), np.stack(ps), np.stack([g[0] for g in gt]),
                                        np.stack([g[1] for g in gt]))
-    print(json.dumps({
-        "package": "lio_mapping_tpu", "platform": "cpu", "dtype": "float32",
-        "profile": "indoor", "sweeps": args.sweeps, "stage": pipe.stage,
+    return {
+        "profile": args.profile, "use_corner": args.use_corner, "fix_map": args.fix_map,
+        "sweeps": n_sweeps, "stage": pipe.stage,
         "inited_at_sweep": stages.index("INITED") if "INITED" in stages else None,
+        "consumed_inited_sweeps": consumed,
         "ate_rmse_m": m.ate_rmse, "rpe_trans_rmse_m": m.rpe_trans_rmse,
         "n_poses": m.n_poses, "run_s": time.perf_counter() - t_run,
-    }))
+    }
+
+
+def _ate(est, gt):
+    t_e, q_e, p_e = evaluation.load_tum(est)
+    t_g, q_g, p_g = evaluation.load_tum(gt)
+    ei, gi = evaluation.associate_by_time(t_e, t_g, max_dt=0.02)
+    return evaluation.evaluate_trajectory(q_e[ei], p_e[ei], q_g[gi], p_g[gi]).ate_rmse, len(t_e)
+
+
+def through_cli(args):
+    t_run = time.perf_counter()
+    n_sweeps = args.sweeps or 90
+    with tempfile.TemporaryDirectory() as d:
+        p = lambda name: os.path.join(d, name)  # noqa: E731
+        sim = ["simulate", "--out", p("seq.liol"), "--gt-out", p("gt.tum"),
+               "--sweeps", str(n_sweeps)]
+        run = ["run", "--log", p("seq.liol"), "--out", p("traj.tum"), "--map-out", p("map.pcd"),
+               "--stats-json", p("stats.json")]
+        if args.cli_outdoor:
+            sim += ["--extrinsic-translation", "-2.4", "0", "0.7"]
+            run += ["--profile", "outdoor"]
+        else:
+            run += ["--profile", "indoor", "--enable-4d", "--out-4d", p("traj_4d.tum")]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if cli.main(sim) != 0 or cli.main(run) != 0:
+                raise SystemExit(f"the JAX CLI failed:\n{buf.getvalue()}")
+        text = buf.getvalue()
+        ate, n_poses = _ate(p("traj.tum"), p("gt.tum"))
+        with open(p("stats.json")) as f:
+            stats = json.load(f)
+        row = {"cli": "outdoor" if args.cli_outdoor else "indoor --enable-4d",
+               "sweeps": n_sweeps, "stage": re.search(r"\(stage: (\w+)\)", text).group(1),
+               "ate_rmse_m": ate, "n_poses": n_poses, "n_pairs": stats["n_pairs"],
+               "map_voxels": int(re.search(r"wrote (\d+) map voxels", text).group(1))}
+        if not args.cli_outdoor:
+            row["ate_4d_rmse_m"], row["n_poses_4d"] = _ate(p("traj_4d.tum"), p("gt.tum"))
+    row["run_s"] = time.perf_counter() - t_run
+    return row
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profile", default="indoor", choices=["indoor", "outdoor_64"])
+    ap.add_argument("--use-corner", action="store_true")
+    ap.add_argument("--fix-map", action="store_true")
+    ap.add_argument("--sweeps", type=int, default=None,
+                    help="default 90 (indoor, CLI) or 60 (outdoor_64)")
+    ap.add_argument("--cli-4d", action="store_true")
+    ap.add_argument("--cli-outdoor", action="store_true")
+    args = ap.parse_args()
+    row = through_cli(args) if (args.cli_4d or args.cli_outdoor) else in_process(args)
+    print(json.dumps({"package": "lio_mapping_tpu", "platform": "cpu", "dtype": "float32",
+                      **row}))
 
 
 if __name__ == "__main__":
