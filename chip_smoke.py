@@ -60,7 +60,38 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 11. the outdoor (KAIST rig) profile through the CLI as subprocesses:
    ``simulate --extrinsic-translation -2.4 0 0.7``, ``run --profile
    outdoor``, ``evaluate``, held as phase 5 is, against the JAX package's
-   CLI on the CPU on the same log.
+   CLI on the CPU on the same log;
+12. the ROS bag round trip of phase 5's log as subprocesses: ``export-bag``
+   (bz2), ``bag-info`` (both topics, 90 sweeps and phase 5's IMU count),
+   ``convert-bag`` (the converted log equals phase 5's item by item: points
+   and IMU bit-equal, stamps within 1e-9 s, rel times equal; a second
+   round trip leaves it byte-identical), then ``run --profile indoor
+   --map-out --stats-json --timing`` on it: INITED, ATE RMSE <= 0.35 m, 89
+   pairs. Its poses beside phase 5's are printed, not held: the bag stores
+   ROS time in integer nanoseconds, which puts some IMU samples exactly on
+   a pair's boundary (t + 0.05 s), and the float32 estimator amplifies
+   that extra row;
+13. the ring-annotated RS-LiDAR-32 rig (``SensorConfig.rs32_uneven()``'s
+   fields as the ``sensor`` block of a YAML over the indoor estimator) at
+   full width: 90 sweeps of 32 rings from -25 to 15 deg at 1800 azimuth
+   steps (57,600 rays), each point's ``ring`` from the simulator's
+   firing-major order, written as a bag with the port's ``BagWriter``;
+   ``convert-bag``, then ``run --config rs32.yaml`` in this process (the
+   kernel's launches counted by path) and ``evaluate``. Fails unless it
+   ends INITED with ATE RMSE <= twice the JAX package's CLI on the same
+   bag on the CPU; the same profile over phase 5's log (no rings) must
+   raise the ring error;
+14. ``viz-normals`` on phase 5's log and ground truth (``--frames 10``, the
+   last sweep): once as a subprocess (feature and map PLYs written,
+   normals of unit length), and in this process through
+   ``cli.normals_view`` with the kernel and with the plain search forced.
+   Fails unless the kernel was launched and at most 0.5% of the accepted
+   rows differ (accepted by one only, or normals apart by more than 1e-4:
+   KNN near-ties).
+
+The sweeps of phases 4, 8 and 13 are simulated in worker processes, and
+phases 5 and 11's ``simulate`` subprocesses run side by side, before any
+timed work of their phases.
 
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -81,6 +112,8 @@ import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
 
 import numpy as np
 import torch
@@ -91,13 +124,15 @@ if not torch.cuda.is_available():
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from lio_mapping_tpu_torch import cli  # noqa: E402
+from lio_mapping_tpu_torch import cli, native  # noqa: E402
 from lio_mapping_tpu_torch.config import LioConfig  # noqa: E402
 from lio_mapping_tpu_torch.io import evaluation, synthetic  # noqa: E402
+from lio_mapping_tpu_torch.io import rosbag as RB  # noqa: E402
 from lio_mapping_tpu_torch.models import estimator as EST  # noqa: E402
 from lio_mapping_tpu_torch.models import map_builder as MB  # noqa: E402
 from lio_mapping_tpu_torch.models import mapping as MAP  # noqa: E402
 from lio_mapping_tpu_torch.models import odometry as ODO  # noqa: E402
+from lio_mapping_tpu_torch.models import pipeline as PL  # noqa: E402
 from lio_mapping_tpu_torch.models.pipeline import LioPipeline  # noqa: E402
 from lio_mapping_tpu_torch.models.point_processor import process_sweep  # noqa: E402
 from lio_mapping_tpu_torch.ops import knn as KNN  # noqa: E402
@@ -125,6 +160,19 @@ CORNER_REF_ATE = {"corner": 0.1361345035297154, "corner_fixmap": 0.1388446146287
 # in the simulated box room
 OUTDOOR_REF_ATE = 2.0356583933705297
 FOUR_D_FLOOR = 0.3     # m: 4D ATE < max(2 x LIO ATE, 0.3) (tests/test_cli_e2e.py:99-101)
+# the JAX package's CLI on the CPU in float32 (`--cli-bag`, `--cli-rs32`):
+# both INITED on the 50th measurement pair
+BAG_REF_ATE = 0.18229904947049347   # phase 5's log after export-bag + convert-bag
+RS32_REF_ATE = 0.576324505536864    # the RS-32 bag of phase 13
+REF_INITED_AT_PAIR = 50
+# SensorConfig.rs32_uneven() as a YAML sensor block, and the rig's scan:
+# 0.2 deg azimuth steps at 10 Hz
+RS32_SENSOR = {"n_rings": 32, "lower_bound_deg": -25.0, "upper_bound_deg": 15.0,
+               "max_points_per_ring": 2304, "uneven": True}
+RS32_AZIMUTH = 1800
+VIZ_FRAMES = 10
+VIZ_MAX_DIFF_ROWS = 0.005  # of the accepted rows: KNN near-ties
+SIM_WORKERS = 6            # processes that simulate sweeps (the machine has 8 cores)
 GATE = 1.0             # estimator min_match_sq_dis (m^2), the kernel's prune gate
 # H100 SXM data-sheet peaks (at 700 W): HBM rate, f32 rate outside the
 # tensor cores
@@ -460,14 +508,21 @@ def check_case(name, q, qm, db, dbm, k, gate):
 # ---------------------------------------------------------------------------
 
 
-def simulate_sequence(traj, n_sweeps: int, rings=None):
+def simulate_sweeps(pool, traj, n_sweeps: int, n_azimuth: int, rings=None):
+    """``simulate_sweep`` of the sweeps starting at 0, 0.1, ... in the
+    worker processes of ``pool``: the arrays a serial loop gives."""
+    futs = [pool.submit(synthetic.simulate_sweep, traj, i * SCAN_DT, n_azimuth=n_azimuth,
+                        **(rings or {})) for i in range(n_sweeps)]
+    return [f.result() for f in futs]
+
+
+def simulate_sequence(pool, traj, n_sweeps: int, rings=None):
     """(xyz, mask, dts, acc, gyr, acc0, gyr0, t_end) per sweep; the IMU
     interval is (t0, t0 + dt], the sweep's own span. ``rings``: the
     sensor's ring arguments (default: the 16-beam rig)."""
     seq = []
-    for i in range(n_sweeps):
+    for i, (xyz, mask) in enumerate(simulate_sweeps(pool, traj, n_sweeps, 900, rings)):
         t0 = i * SCAN_DT
-        xyz, mask = synthetic.simulate_sweep(traj, t0, n_azimuth=900, **(rings or {}))
         ts, acc, gyr = synthetic.simulate_imu_interval(traj, t0, t0 + SCAN_DT, IMU_RATE)
         a0, w0 = traj.imu(t0)
         dts = np.diff(np.concatenate([[t0], ts]))
@@ -749,14 +804,14 @@ def main_path(seq, traj):
 # ---------------------------------------------------------------------------
 
 
-def outdoor64_path():
+def outdoor64_path(pool):
     """Phase 8: ``LioPipeline(outdoor_64)`` in-process over 60 HDL-64
     sweeps, then a consumed sweep's launches, host syncs and stage times (and
     a skipped sweep's launches) on the sweeps after it."""
     cfg = outdoor64_cfg()
     traj = synthetic.Trajectory(g_norm=cfg.estimator.imu.g_norm)
     t0 = time.perf_counter()
-    seq = simulate_sequence(traj, N_O64 + N_O64_EXTRA, rings_of(cfg))
+    seq = simulate_sequence(pool, traj, N_O64 + N_O64_EXTRA, rings_of(cfg))
     log(f"simulated {len(seq)} HDL-64 sweeps in {time.perf_counter() - t0:.1f} s")
     pipe = LioPipeline(cfg, device=DEV, dtype=torch.float32)
     recs, poses, by_path, _, shapes, run_s = drive(
@@ -844,23 +899,38 @@ def corner_paths(seq, traj):
 # ---------------------------------------------------------------------------
 
 
-def cli_call(workdir, *args, timeout=900):
-    """``python -m lio_mapping_tpu_torch.cli <args>`` as a subprocess in
-    ``workdir``, this checkout on its path; returns its stdout, raises on a
-    non-zero exit."""
+def cli_start(workdir, *args):
+    """Start ``python -m lio_mapping_tpu_torch.cli <args>`` as a subprocess
+    in ``workdir``, this checkout on its path; ``cli_finish`` waits for it."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(x for x in (ROOT, env.get("PYTHONPATH")) if x)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "lio_mapping_tpu_torch.cli", *args],
-                          cwd=workdir, env=env, capture_output=True, text=True,
-                          timeout=timeout)
-    for line in proc.stdout.splitlines():
+    proc = subprocess.Popen([sys.executable, "-m", "lio_mapping_tpu_torch.cli", *args],
+                            cwd=workdir, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, args, time.perf_counter()
+
+
+def cli_finish(started, timeout=900):
+    """Wait for a ``cli_start`` subprocess; returns its stdout, raises on a
+    non-zero exit (and kills it past ``timeout`` s)."""
+    proc, args, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    for line in out.splitlines():
         log(f"  cli {args[0]}: {line}")
     if proc.returncode != 0:
-        raise AssertionError(f"cli {' '.join(args)} exited {proc.returncode}:\n"
-                             f"{proc.stderr[-4000:]}")
+        raise AssertionError(f"cli {' '.join(args)} exited {proc.returncode}:\n{err[-4000:]}")
     log(f"  cli {args[0]} took {time.perf_counter() - t0:.1f} s")
-    return proc.stdout
+    return out
+
+
+def cli_call(workdir, *args, timeout=900):
+    """``cli_start`` and ``cli_finish``: one CLI subprocess, waited for."""
+    return cli_finish(cli_start(workdir, *args), timeout)
 
 
 def _grab(pattern, text, what):
@@ -870,10 +940,10 @@ def _grab(pattern, text, what):
     return m.group(1)
 
 
-def cli_lio(workdir):
-    """Phase 5: simulate, run (lio), evaluate, each a subprocess."""
-    cli_call(workdir, "simulate", "--out", "seq.liol", "--gt-out", "gt.tum",
-             "--sweeps", str(N_SWEEPS))
+def cli_lio(workdir, simulating):
+    """Phase 5: simulate (started by the caller), run (lio), evaluate, each
+    a subprocess."""
+    cli_finish(simulating)
     out = cli_call(workdir, "run", "--log", "seq.liol", "--profile", "indoor",
                    "--out", "traj.tum", "--map-out", "map.pcd", "--stats-json", "stats.json")
     ev = cli_call(workdir, "evaluate", "--est", "traj.tum", "--gt", "gt.tum")
@@ -1017,11 +1087,11 @@ def cli_4d(workdir):
     return row, by_path
 
 
-def cli_outdoor(workdir):
+def cli_outdoor(workdir, simulating):
     """Phase 11: the outdoor (KAIST rig) profile through the CLI as
-    subprocesses: simulate with the rig's laser offset, run, evaluate."""
-    cli_call(workdir, "simulate", "--out", "seq_o.liol", "--gt-out", "gt_o.tum",
-             "--sweeps", str(N_SWEEPS), "--extrinsic-translation", "-2.4", "0", "0.7")
+    subprocesses: simulate with the rig's laser offset (started by the
+    caller), run, evaluate."""
+    cli_finish(simulating)
     out = cli_call(workdir, "run", "--log", "seq_o.liol", "--profile", "outdoor",
                    "--out", "traj_o.tum", "--map-out", "map_o.pcd", "--stats-json",
                    "stats_o.json", "--timing")
@@ -1045,6 +1115,256 @@ def cli_outdoor(workdir):
     if row["knn_launches"] <= 0:
         raise AssertionError("the outdoor cli run did not launch the kernel")
     return row
+
+
+# ---------------------------------------------------------------------------
+# phases 12-14: the bag path, the RS-32 rig, viz-normals
+# ---------------------------------------------------------------------------
+
+
+def _same_items(got, want, what):
+    """Two sequence logs' items equal: points, rel times, rings and IMU
+    bit for bit, stamps within 1e-9 s (ROS time is integer nanoseconds).
+    Returns the largest stamp difference."""
+    if [x[0] for x in got] != [x[0] for x in want]:
+        raise AssertionError(f"{what}: the item kinds differ")
+    max_dt = 0.0
+    for i, (x, y) in enumerate(zip(got, want)):
+        max_dt = max(max_dt, abs(x[1] - y[1]))
+        for u, v in zip(x[2:], y[2:]):
+            if (u is None) != (v is None) or (u is not None and (
+                    u.dtype != v.dtype or not np.array_equal(u, v))):
+                raise AssertionError(f"{what}: item {i} ({x[0]}) differs")
+    if max_dt > 1e-9:
+        raise AssertionError(f"{what}: stamps differ by {max_dt} s")
+    return max_dt
+
+
+def cli_bag(workdir, single):
+    """Phase 12: export-bag, bag-info, convert-bag and run on phase 5's log,
+    each a subprocess; the converted log held against the original."""
+    p = lambda name: os.path.join(workdir, name)  # noqa: E731
+    cli_call(workdir, "export-bag", "--log", "seq.liol", "--out", "seq.bag")
+    info = cli_call(workdir, "bag-info", "--bag", "seq.bag")
+    topics = {m.group(1): (m.group(2), int(m.group(3)))
+              for m in re.finditer(r"^(\S+)\s+(\S+)\s+(\d+) msgs$", info, re.M)}
+    original = list(native.SequenceLog(p("seq.liol")))
+    want = {"/imu/data": ("sensor_msgs/Imu", sum(x[0] == "imu" for x in original)),
+            "/velodyne_points": ("sensor_msgs/PointCloud2", N_SWEEPS)}
+    if topics != want:
+        raise AssertionError(f"bag-info lists {topics}, not {want}")
+    cli_call(workdir, "convert-bag", "--bag", "seq.bag", "--out", "seq_bag.liol")
+    max_stamp_dt = _same_items(list(native.SequenceLog(p("seq_bag.liol"))), original,
+                               "convert-bag of export-bag")
+    # a log that went through a bag once is a fixed point of the round trip
+    cli_inprocess("export-bag", "--log", p("seq_bag.liol"), "--out", p("seq_bag2.bag"),
+                  "--compression", "none")
+    cli_inprocess("convert-bag", "--bag", p("seq_bag2.bag"), "--out", p("seq_bag2.liol"))
+    with open(p("seq_bag.liol"), "rb") as f1, open(p("seq_bag2.liol"), "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError("a second bag round trip changed the log")
+
+    out = cli_call(workdir, "run", "--log", "seq_bag.liol", "--profile", "indoor",
+                   "--out", "traj_bag.tum", "--map-out", "map_bag.pcd",
+                   "--stats-json", "stats_bag.json", "--timing")
+    ev = cli_inprocess("evaluate", "--est", p("traj_bag.tum"), "--gt", p("gt.tum"))
+    with open(p("stats_bag.json")) as f:
+        stats = json.load(f)
+    t_sp, q_sp, p_sp = evaluation.load_tum(p("traj.tum"))
+    t_b, q_b, p_b = evaluation.load_tum(p("traj_bag.tum"))
+    same_len = len(t_b) == len(t_sp)
+    row = {"topics": topics, "max_stamp_dt_s": max_stamp_dt,
+           "stage": _grab(r"\(stage: (\w+)\)", out, "stage"),
+           "ate_rmse_m": float(_grab(r"ATE RMSE: ([0-9.]+) m", ev, "ATE")),
+           "ate_rmse_phase5_m": single["ate_rmse_m"], "ref_ate_rmse_m": BAG_REF_ATE,
+           "map_voxels": int(_grab(r"wrote (\d+) map voxels", out, "map size")),
+           "map_voxels_phase5": single["map_voxels"],
+           "max_dp_vs_phase5_m": float(np.max(np.abs(p_b - p_sp))) if same_len else None,
+           "min_abs_qdot_vs_phase5": float(np.min(np.abs(np.sum(q_b * q_sp, axis=-1))))
+           if same_len else None,
+           "knn_launches": int(_grab(r"knn kernel launches: (\d+)", out, "launches")),
+           "stats": stats}
+    log("cli_bag " + json.dumps(row))
+    if row["stage"] != "INITED":
+        raise AssertionError(f"run on the converted log ended {row['stage']}, not INITED")
+    if not row["ate_rmse_m"] <= ATE_LIMIT:
+        raise AssertionError(f"run on the converted log: ATE RMSE {row['ate_rmse_m']} m > "
+                             f"{ATE_LIMIT} m")
+    if stats["n_pairs"] != N_SWEEPS - 1 or row["map_voxels"] <= 0 or not same_len:
+        raise AssertionError(f"run on the converted log: {stats['n_pairs']} pairs, "
+                             f"{row['map_voxels']} map voxels, {len(t_b)} poses")
+    if row["knn_launches"] <= 0:
+        raise AssertionError("the run on the converted log did not launch the kernel")
+    return row
+
+
+@contextlib.contextmanager
+def stages_by_pair(stages):
+    """Append the stage of each ``LioPipeline.process`` call to ``stages``."""
+    orig = PL.LioPipeline.process
+
+    def process(self, *args, **kwargs):
+        out = orig(self, *args, **kwargs)
+        stages.append(out["stage"])
+        return out
+
+    PL.LioPipeline.process = process
+    try:
+        yield stages
+    finally:
+        PL.LioPipeline.process = orig
+
+
+def rs32_path(workdir, pool):
+    """Phase 13: the RS-32 ring-annotated rig: simulate, write the bag with
+    the port's ``BagWriter``, convert-bag (a subprocess), then run and
+    evaluate in this process, the kernel's launches counted by path."""
+    p = lambda name: os.path.join(workdir, name)  # noqa: E731
+    with open(p("rs32.yaml"), "w") as f:
+        json.dump({"sensor": RS32_SENSOR}, f)  # JSON is a subset of YAML
+    traj = sim_trajectory()
+    t0 = time.perf_counter()
+    sweeps = simulate_sweeps(pool, traj, N_SWEEPS, RS32_AZIMUTH,
+                             dict(n_rings=RS32_SENSOR["n_rings"],
+                                  lower_deg=RS32_SENSOR["lower_bound_deg"],
+                                  upper_deg=RS32_SENSOR["upper_bound_deg"]))
+    t_sim = time.perf_counter() - t0
+    # firing-major order: ring r of every azimuth step
+    rings = np.tile(np.arange(RS32_SENSOR["n_rings"], dtype=np.uint16), RS32_AZIMUTH)
+    t_imu = 0.0
+    with RB.BagWriter(p("rs32.bag"), compression="bz2") as w:
+        for i, (xyz, mask) in enumerate(sweeps):
+            t_start = i * SCAN_DT
+            while t_imu < t_start + SCAN_DT:
+                t_imu += 1.0 / IMU_RATE
+                acc, gyr = traj.imu(t_imu)
+                w.write("/imu/data", "sensor_msgs/Imu", t_imu, RB.serialize_imu(
+                    t_imu, acc.astype(np.float32), gyr.astype(np.float32)))
+            t = t_start + SCAN_DT
+            w.write("/velodyne_points", "sensor_msgs/PointCloud2", t,
+                    RB.serialize_pointcloud2(t, xyz[mask], None, rings[mask]))
+    times = [i * SCAN_DT + SCAN_DT for i in range(N_SWEEPS)]
+    gt = [synthetic.gt_sensor_pose(traj, t) for t in times]
+    evaluation.save_tum(p("gt_rs32.tum"), times, np.stack([g[0] for g in gt]),
+                        np.stack([g[1] for g in gt]))
+    log(f"simulated {N_SWEEPS} RS-32 sweeps ({len(rings)} rays) in {t_sim:.1f} s, bag "
+        f"{os.path.getsize(p('rs32.bag')) / 2**20:.1f} MiB in "
+        f"{time.perf_counter() - t0 - t_sim:.1f} s")
+    cli_call(workdir, "convert-bag", "--bag", "rs32.bag", "--out", "rs32.liol")
+    conv = [x for x in native.SequenceLog(p("rs32.liol")) if x[0] == "sweep"]
+    if len(conv) != N_SWEEPS or any(x[4] is None or len(x[4]) != len(x[2]) for x in conv):
+        raise AssertionError("the converted RS-32 log lacks its ring channel")
+    if not np.array_equal(conv[0][4], rings[sweeps[0][1]]):
+        raise AssertionError("the converted RS-32 log's rings differ from the bag's")
+
+    by_path, stages = {}, []
+    knn_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with launches_by_path(by_path, {"rs32_estimator": (EST, "lio_step_impl"),
+                                    "rs32_odometry": (ODO, "odometry_step")}), \
+            stages_by_pair(stages):
+        out = cli_inprocess("run", "--log", p("rs32.liol"), "--config", p("rs32.yaml"),
+                            "--out", p("traj_rs32.tum"), "--stats-json", p("stats_rs32.json"))
+    run_s = time.perf_counter() - t0
+    if sum(by_path.values()) != knn_kernel.LAUNCHES:
+        raise AssertionError(f"launches by path {by_path} do not add up to {knn_kernel.LAUNCHES}")
+    ev = cli_inprocess("evaluate", "--est", p("traj_rs32.tum"), "--gt", p("gt_rs32.tum"))
+    with open(p("stats_rs32.json")) as f:
+        stats = json.load(f)
+    # the same profile over a log without rings must refuse
+    try:
+        cli.main(["run", "--log", p("seq.liol"), "--config", p("rs32.yaml"),
+                  "--out", p("traj_norings.tum")])
+    except ValueError as e:
+        ring_error = str(e)
+    else:
+        raise AssertionError("the uneven profile ran on a log without rings")
+    if "ring" not in ring_error:
+        raise AssertionError(f"the uneven profile failed without the ring error: {ring_error}")
+    row = {"rays": int(len(rings)), "points_mean": float(np.mean([len(x[2]) for x in conv])),
+           "stage": _grab(r"\(stage: (\w+)\)", out, "stage"),
+           "inited_at_pair": stages.index("INITED") if "INITED" in stages else None,
+           "ref_inited_at_pair": REF_INITED_AT_PAIR,
+           "ate_rmse_m": float(_grab(r"ATE RMSE: ([0-9.]+) m", ev, "ATE")),
+           "ate_limit_m": 2 * RS32_REF_ATE, "ring_error": ring_error,
+           "knn_launches_by_path": by_path, "run_s": run_s, "stats": stats}
+    log("rs32 " + json.dumps(row))
+    if row["stage"] != "INITED":
+        raise AssertionError(f"the RS-32 run ended {row['stage']}, not INITED")
+    if not row["ate_rmse_m"] <= row["ate_limit_m"]:
+        raise AssertionError(f"RS-32 ATE RMSE {row['ate_rmse_m']} m > {row['ate_limit_m']} m")
+    if stats["n_pairs"] != N_SWEEPS - 1 or by_path.get("rs32_estimator", 0) <= 0:
+        raise AssertionError(f"the RS-32 run: {stats['n_pairs']} pairs, launches {by_path}")
+    return row, by_path
+
+
+def _read_ply(path):
+    """(vertex rows, header lines) of an ASCII PLY."""
+    with open(path) as f:
+        head = []
+        while not head or head[-1] != "end_header":
+            head.append(f.readline().strip())
+        rows = np.loadtxt(f, ndmin=2)
+    n = int(next(h for h in head if h.startswith("element vertex")).split()[-1])
+    if len(rows) != n:
+        raise AssertionError(f"{path}: {len(rows)} rows for {n} vertices")
+    return rows, head
+
+
+def viz_path(workdir):
+    """Phase 14: viz-normals as a subprocess, then ``cli.normals_view`` in
+    this process with the kernel and with the plain search forced."""
+    p = lambda name: os.path.join(workdir, name)  # noqa: E731
+    cli_call(workdir, "viz-normals", "--log", "seq.liol", "--traj", "gt.tum",
+             "--out", "normals.ply", "--map-out", "normals_map.ply",
+             "--frames", str(VIZ_FRAMES))
+    feats, head = _read_ply(p("normals.ply"))
+    local_map, _ = _read_ply(p("normals_map.ply"))
+    norms = np.linalg.norm(feats[:, 3:6], axis=1) if len(feats) else np.zeros(0)
+    if not len(feats) or "property float quality" not in head or not len(local_map):
+        raise AssertionError(f"viz-normals wrote {len(feats)} features, {len(local_map)} "
+                             "map points")
+    if np.max(np.abs(norms - 1.0)) > 3e-4:  # four printed decimals
+        raise AssertionError(f"viz-normals normals are not unit: {np.max(np.abs(norms - 1))}")
+
+    cfg = LioConfig.indoor()
+    knn_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    view = cli.normals_view(p("seq.liol"), p("gt.tum"), cfg, frames=VIZ_FRAMES, device=DEV)
+    kernel_s = time.perf_counter() - t0
+    launches = knn_kernel.LAUNCHES
+    t0 = time.perf_counter()
+    plain = cli.normals_view(p("seq.liol"), p("gt.tum"), cfg, frames=VIZ_FRAMES, device=DEV,
+                             force_tiled=True)
+    plain_s = time.perf_counter() - t0
+    if knn_kernel.LAUNCHES != launches:
+        raise AssertionError("the forced plain search launched the kernel")
+    if not (np.array_equal(view.xyz, plain.xyz) and np.array_equal(view.map_xyz, plain.map_xyz)):
+        raise AssertionError("normals_view's queries or local map differ between the searches")
+    both = view.ok & plain.ok
+    dn = np.abs(view.normals[both] - plain.normals[both]).max(axis=1)
+    differing = int(np.sum(view.ok ^ plain.ok) + np.sum(dn > 1e-4))
+    accepted = int(np.sum(view.ok | plain.ok))
+    row = {"features_cli": len(feats), "map_points_cli": len(local_map),
+           "max_unit_err_cli": float(np.max(np.abs(norms - 1.0))),
+           "features_kernel": int(view.ok.sum()), "features_plain": int(plain.ok.sum()),
+           "rows": len(view.ok), "accepted_by_one": int(np.sum(view.ok ^ plain.ok)),
+           "common_apart_1e-4": int(np.sum(dn > 1e-4)),
+           "max_normal_diff_common": float(dn.max(initial=0.0)),
+           "max_score_diff_common": float(np.max(np.abs(view.scores[both] - plain.scores[both]),
+                                                 initial=0.0)),
+           "differing_share": differing / max(accepted, 1), "knn_launches": launches,
+           "kernel_view_s": kernel_s, "plain_view_s": plain_s}
+    log("viz_normals " + json.dumps(row))
+    if launches <= 0:
+        raise AssertionError("normals_view on the card did not launch the kernel")
+    if not len(feats) == row["features_kernel"]:
+        raise AssertionError(f"viz-normals wrote {len(feats)} features, normals_view accepted "
+                             f"{row['features_kernel']}")
+    if row["differing_share"] > VIZ_MAX_DIFF_ROWS:
+        raise AssertionError(f"kernel and plain search differ in {differing} of {accepted} "
+                             "accepted rows")
+    return row, launches
 
 
 def main():
@@ -1074,19 +1394,37 @@ def main():
     max_err = max(r["max_abs_err"] for r in rows)
     corner_row = corner_plain(*corner)
 
-    t0 = time.perf_counter()
-    seq = simulate_sequence(traj, N_SWEEPS + N_EXTRA)
-    log(f"simulated {len(seq)} sweeps in {time.perf_counter() - t0:.1f} s")
-    summary, lio_paths = main_path(seq, traj)
+    # sweeps are simulated in worker processes (a fresh interpreter each, so
+    # nothing of this process's CUDA state is inherited)
+    with ProcessPoolExecutor(SIM_WORKERS, mp_context=get_context("spawn")) as pool, \
+            tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        seq = simulate_sequence(pool, traj, N_SWEEPS + N_EXTRA)
+        log(f"simulated {len(seq)} sweeps in {time.perf_counter() - t0:.1f} s")
+        summary, lio_paths = main_path(seq, traj)
 
-    with tempfile.TemporaryDirectory() as workdir:
-        single = cli_lio(workdir)
-        cli_two_phase(workdir, single)
-        _, loam_paths = cli_loam(workdir)
-        _, o64_paths = outdoor64_path()
-        corner_by_path = corner_paths(seq, traj)
-        _, four_d_paths = cli_4d(workdir)
-        outdoor = cli_outdoor(workdir)
+        # phases 5 and 11's logs, simulated side by side
+        simulating = [cli_start(workdir, "simulate", "--out", "seq.liol", "--gt-out", "gt.tum",
+                                "--sweeps", str(N_SWEEPS)),
+                      cli_start(workdir, "simulate", "--out", "seq_o.liol", "--gt-out",
+                                "gt_o.tum", "--sweeps", str(N_SWEEPS),
+                                "--extrinsic-translation", "-2.4", "0", "0.7")]
+        try:
+            single = cli_lio(workdir, simulating[0])
+            cli_two_phase(workdir, single)
+            _, loam_paths = cli_loam(workdir)
+            _, o64_paths = outdoor64_path(pool)
+            corner_by_path = corner_paths(seq, traj)
+            _, four_d_paths = cli_4d(workdir)
+            outdoor = cli_outdoor(workdir, simulating[1])
+        finally:
+            for proc, _, _ in simulating:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        bag = cli_bag(workdir, single)
+        _, rs32_paths = rs32_path(workdir, pool)
+        _, viz_launches = viz_path(workdir)
 
     # the device time of each of the search's kernels, under torch.profiler
     # (after every timed run: the profiler may slow later host work)
@@ -1109,7 +1447,8 @@ def main():
     map_row = next(r for r in rows if r["case"] == "mapping_5nn_gated")
     o64_row = next(r for r in rows if r["case"] == "estimator64_5nn_gated")
     by_path = {**lio_paths, **loam_paths, **o64_paths, **corner_by_path, **four_d_paths,
-               "cli_outdoor": outdoor["knn_launches"]}
+               "cli_outdoor": outdoor["knn_launches"], "cli_bag": bag["knn_launches"],
+               **rs32_paths, "viz_normals": viz_launches}
     kernels = [{
         "name": "knn", "route": "cuda", "source": "lio_mapping_tpu_torch/csrc/knn.cu",
         "replaces": "lio_mapping_tpu/ops/pallas/knn_kernel.py:167",

@@ -4,12 +4,21 @@
         --gt-out gt.tum
     python -m lio_mapping_tpu_torch.cli run --log seq.liol --profile indoor \
         --out traj.tum [--map-out map.pcd] [--mode lio|loam] [--device cuda|cpu]
-        [--self-filter] [--timing] [--trace-dir d] [--stats-json s.json]
-        [--checkpoint-out c.npz --checkpoint-every N] [--resume c.npz]
-        [--two-phase] [--enable-4d --out-4d traj_4d.tum]
+        [--config profile.yaml] [--self-filter] [--timing] [--trace-dir d]
+        [--stats-json s.json] [--checkpoint-out c.npz --checkpoint-every N]
+        [--resume c.npz] [--two-phase] [--enable-4d --out-4d traj_4d.tum]
     python -m lio_mapping_tpu_torch.cli evaluate --est traj.tum --gt gt.tum
     python -m lio_mapping_tpu_torch.cli export-pcd --log seq.liol \
         --traj traj.tum --out map.pcd
+    python -m lio_mapping_tpu_torch.cli bag-info --bag in.bag
+    python -m lio_mapping_tpu_torch.cli convert-bag --bag in.bag --out seq.liol \
+        [--points-topic T] [--imu-topic T] [--scan-period 0.1] [--min-range 0]
+    python -m lio_mapping_tpu_torch.cli export-bag --log seq.liol --out out.bag \
+        [--compression bz2|none]
+    python -m lio_mapping_tpu_torch.cli plot-traj --est traj.tum [--gt gt.tum] \
+        --out dash.png [--euler-csv euler.csv]
+    python -m lio_mapping_tpu_torch.cli viz-normals --log seq.liol --traj traj.tum \
+        --out normals.ply [--map-out map.ply] [--device cuda|cpu]
 
 ``run`` replays a sequence log through the pipeline (LIO, or the LiDAR-only
 LOAM baseline), writes a TUM trajectory and, with ``--map-out``, the
@@ -18,16 +27,29 @@ accumulated global map as a PCD. It runs on the card unless given
 back to the CPU by itself. The host loop is the reference's: the native
 measurement queue pairs each sweep with its IMU up to ``t +
 msg_time_delay``, the boundary sample is split there by linear
-interpolation, sweeps are padded to 4096-row multiples, and a sweep's cloud
-is copied to the card when it arrives if the pipeline will consume it.
-``--enable-4d`` runs the yaw-constrained 4D map builder
-(``models/map_builder.py``) on each INITED sweep the estimator consumed,
-with its newest laser pose; ``--out-4d`` writes the refined poses.
+interpolation, sweeps are padded to 4096-row multiples (padded rows are
+masked and get ring 0), and a sweep's cloud is copied to the card when it
+arrives if the pipeline will consume it. A ring-annotated log (``.liol``
+v2, from ``convert-bag`` of a bag whose clouds carry the driver's ``ring``
+field) feeds a profile with ``sensor.uneven``; such a profile over a log
+without rings raises. ``--enable-4d`` runs the yaw-constrained 4D map
+builder (``models/map_builder.py``) on each INITED sweep the estimator
+consumed, with its newest laser pose; ``--out-4d`` writes the refined poses.
+
+``bag-info``, ``convert-bag`` and ``export-bag`` read and write ROS bags
+(v2.0, none/bz2 chunks) through ``io/rosbag.py``; ``plot-traj`` renders
+trajectory dashboards with matplotlib (imported only there). ``viz-normals``
+rebuilds the estimator's plane association at one sweep, on the card
+unless given ``--device cpu`` (without CUDA it stops with an error), so
+its 5-NN search runs the CUDA KNN kernel.
 
 Not ported yet, refused with exit code 2: ``--mesh``, ``--map-shard`` and
-``--ingest-shard`` (multi-GPU). Two faults of the reference are fixed here: ``--two-phase``
-applies ``--self-filter`` to the initialisation sweep it puts back into the
-map, and the log reader keeps each sweep in its own handle.
+``--ingest-shard`` (multi-GPU). ``--compile-cache`` is accepted and has
+nothing to do: the port compiles no XLA programs (its native library and
+kernel are built once into ``_build/``). Two faults of the reference are
+fixed here: ``--two-phase`` applies ``--self-filter`` to the initialisation
+sweep it puts back into the map, and the log reader keeps each sweep in its
+own handle.
 """
 
 from __future__ import annotations
@@ -37,6 +59,7 @@ import json
 import os
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -166,6 +189,18 @@ def _host_f64(parts):
     return [np.asarray(a, np.float64) if o is None else o for a, o in zip(parts, out)]
 
 
+def _no_cuda(device) -> bool:
+    """True, with the error printed, when ``device`` is CUDA and there is
+    none: the commands that run on the card never fall back to the CPU."""
+    import torch
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        print("error: CUDA is not available; run with --device cpu to use the CPU",
+              file=sys.stderr)
+        return True
+    return False
+
+
 def _sync(device):
     import torch
 
@@ -191,11 +226,9 @@ def cmd_run(args):
 
     import torch
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("error: CUDA is not available; run with --device cpu to use the CPU",
-              file=sys.stderr)
+    if _no_cuda(args.device):
         return 2
+    device = torch.device(args.device)
     if args.two_phase:
         return _run_two_phase(args)
 
@@ -553,6 +586,162 @@ def cmd_export_pcd(args):
     return 0
 
 
+def cmd_bag_info(args):
+    """Topic inventory of a rosbag (``rosbag info`` equivalent)."""
+    from .io.rosbag import BagReader
+
+    info = BagReader(args.bag).topics()
+    for topic, (msg_type, count) in sorted(info.items()):
+        print(f"{topic:40s} {msg_type:30s} {count:8d} msgs")
+    return 0
+
+
+def cmd_convert_bag(args):
+    """rosbag -> sequence log (the reference's `rosbag play` entry point).
+    Topics default to the largest sensor_msgs/PointCloud2 and
+    sensor_msgs/Imu topics in the bag."""
+    from .io.rosbag import convert_bag
+
+    n_sweeps, n_imu = convert_bag(args.bag, args.out, points_topic=args.points_topic,
+                                  imu_topic=args.imu_topic, scan_period=args.scan_period,
+                                  min_range=args.min_range)
+    print(f"converted {n_sweeps} sweeps + {n_imu} imu msgs -> {args.out}")
+    if n_sweeps == 0:
+        print("warning: no sweeps converted (check --points-topic)")
+        return 1
+    return 0
+
+
+def cmd_export_bag(args):
+    """Sequence log -> rosbag (for ROS-side tooling/rviz replay)."""
+    from . import native
+    from .io import rosbag as RB
+
+    n = 0
+    with RB.BagWriter(args.out, compression=args.compression) as w:
+        for item in native.SequenceLog(args.log):
+            if item[0] == "sweep":
+                _, t, xyz, rel, ring = item
+                w.write(args.points_topic, "sensor_msgs/PointCloud2", t,
+                        RB.serialize_pointcloud2(t, xyz, rel, ring=ring))
+            else:
+                _, t, acc, gyr = item
+                w.write(args.imu_topic, "sensor_msgs/Imu", t, RB.serialize_imu(t, acc, gyr))
+            n += 1
+    print(f"wrote {n} messages to {args.out}")
+    return 0
+
+
+def cmd_plot_traj(args):
+    """Trajectory dashboards: XY path, altitude, euler angles (PNG), and an
+    optional euler CSV (scripts/transform_monitor.py's series)."""
+    from .io.evaluation import load_tum
+    from .io.viz import plot_trajectory, save_euler_csv
+
+    t_e, q_e, p_e = load_tum(args.est)
+    gt = load_tum(args.gt) if args.gt else None
+    plot_trajectory(args.out, t_e, q_e, p_e, gt=gt, title=args.title)
+    print(f"wrote {args.out}")
+    if args.euler_csv:
+        save_euler_csv(args.euler_csv, t_e, q_e)
+        print(f"wrote {args.euler_csv}")
+    return 0
+
+
+class NormalsView(NamedTuple):
+    """One sweep's plane association (``normals_view``), on the host:
+    every query row of the voxel-filtered sweep, which rows were accepted,
+    their unit normals and scores, and the local map's valid rows."""
+
+    xyz: np.ndarray      # (C, 3) query rows, pivot (sweep) frame
+    ok: np.ndarray       # (C,) accepted as surf features
+    normals: np.ndarray  # (C, 3)
+    scores: np.ndarray   # (C,)
+    map_xyz: np.ndarray  # (M', 3)
+
+
+def normals_view(log: str, traj: str, cfg, index: int = -1, frames: int = 10,
+                 device="cuda", force_tiled: bool = False):
+    """The estimator's association view at one sweep (PlaneNormalVisualizer,
+    Visualizer.h:75-106): the ``frames`` sweeps before it, posed by the TUM
+    trajectory (nearest stamp within half a scan period), form a local map
+    in its frame; its voxel-filtered points associate against that map with
+    the estimator's 5-NN plane rows (``make_knn5`` + ``_surf_rows``), on
+    ``device``: on the card the search runs the CUDA kernel, unless
+    ``force_tiled`` keeps it on the plain version. None when fewer than two
+    sweeps are posed."""
+    import torch
+
+    from . import native
+    from .io.evaluation import load_tum
+    from .models import estimator as EST
+    from .ops import voxel as VX
+    from .utils import quaternion as quat
+    from .utils.se3 import Pose
+
+    dev = torch.device(device)
+    f32 = dict(dtype=torch.float32, device=dev)
+    e = cfg.estimator
+    t_tr, q_tr, p_tr = load_tum(traj)
+    posed = []  # (xyz, Pose)
+    half = 0.05
+    for item in native.SequenceLog(log):
+        if item[0] != "sweep":
+            continue
+        t, xyz = item[1], item[2]
+        i = int(np.argmin(np.abs(t_tr - t)))
+        if abs(t_tr[i] - t) > half:
+            continue
+        posed.append((xyz, Pose(torch.as_tensor(q_tr[i], **f32),
+                                torch.as_tensor(p_tr[i], **f32))))
+    if len(posed) < 2:
+        return None
+    idx = index if index >= 0 else len(posed) - 1
+    idx = min(max(idx, 1), len(posed) - 1)
+    pivot_pose = posed[idx][1]
+
+    # map: sweeps [idx - frames, idx) in the pivot frame
+    pts = []
+    for xyz, pose in posed[max(0, idx - frames):idx]:
+        rel = pivot_pose.inverse() @ pose
+        pts.append(quat.rotate(rel.q[None, :], torch.as_tensor(xyz, **f32)) + rel.t[None, :])
+    merged = torch.cat(pts)
+    map_xyz, map_mask, _ = VX.voxel_downsample(
+        merged, torch.ones(len(merged), dtype=torch.bool, device=dev), e.surf_filter_size,
+        e.local_map_filtered_cap)
+    sweep = torch.as_tensor(posed[idx][0], **f32)
+    q_xyz, q_mask, _ = VX.voxel_downsample(
+        sweep, torch.ones(len(sweep), dtype=torch.bool, device=dev), e.surf_filter_size,
+        e.surf_stack_cap)
+    in_fov = torch.ones(q_xyz.shape[:1], dtype=torch.bool, device=dev)
+    knn5 = EST.make_knn5(map_xyz, map_mask, cfg, force_tiled=force_tiled)
+    coeff, score, ok = EST._surf_rows(knn5, q_xyz, q_mask, in_fov, cfg)
+    normals = coeff[:, :3] / torch.clamp_min(score, 1e-6)[:, None]
+    return NormalsView(q_xyz.cpu().numpy(), ok.cpu().numpy(), normals.cpu().numpy(),
+                       score.cpu().numpy(), map_xyz[map_mask].cpu().numpy())
+
+
+def cmd_viz_normals(args):
+    """Local map + fitted plane normals export: the accepted features of
+    ``normals_view`` as a normals-annotated PLY (the score as its quality
+    channel), and the local map as a PLY cloud."""
+    from .io.viz import save_ply_cloud, save_ply_normals
+
+    if _no_cuda(args.device):
+        return 2
+    view = normals_view(args.log, args.traj, _profile(args.profile), args.index, args.frames,
+                        args.device)
+    if view is None:
+        print("not enough posed sweeps")
+        return 1
+    save_ply_normals(args.out, view.xyz[view.ok], view.normals[view.ok], view.scores[view.ok])
+    print(f"wrote {int(view.ok.sum())} features with normals to {args.out}")
+    if args.map_out:
+        save_ply_cloud(args.map_out, view.map_xyz)
+        print(f"wrote local map to {args.map_out}")
+    return 0
+
+
 def cmd_evaluate(args):
     from .io.evaluation import associate_by_time, evaluate_trajectory, load_tum
 
@@ -630,6 +819,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the yaw-constrained 4D map builder on the estimator output "
                         "(map_4D_indoor.launch)")
     p.add_argument("--out-4d", default=None, help="TUM output of the 4D-refined trajectory")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="accepted for the reference's command lines; the port has no XLA "
+                        "compilation to cache (its kernel and native library are built "
+                        "once into _build/)")
     # parsed, but not ported yet: refused with exit code 2
     p.add_argument("--mesh", type=int, default=0, help="not ported yet (ROADMAP item 16)")
     p.add_argument("--map-shard", action="store_true", help="not ported yet (ROADMAP item 16)")
@@ -643,6 +836,51 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-dt", type=float, default=0.02,
                    help="max |dt| for nearest-timestamp pose association")
     p.set_defaults(fn=cmd_evaluate)
+
+    p = sub.add_parser("bag-info")
+    p.add_argument("--bag", required=True)
+    p.set_defaults(fn=cmd_bag_info)
+
+    p = sub.add_parser("convert-bag")
+    p.add_argument("--bag", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--points-topic", default=None)
+    p.add_argument("--imu-topic", default=None)
+    p.add_argument("--scan-period", type=float, default=0.1)
+    p.add_argument("--min-range", type=float, default=0.0,
+                   help="drop points closer than this (self-returns)")
+    p.set_defaults(fn=cmd_convert_bag)
+
+    p = sub.add_parser("export-bag")
+    p.add_argument("--log", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--points-topic", default="/velodyne_points")
+    p.add_argument("--imu-topic", default="/imu/data")
+    p.add_argument("--compression", default="bz2", choices=["none", "bz2"])
+    p.set_defaults(fn=cmd_export_bag)
+
+    p = sub.add_parser("plot-traj")
+    p.add_argument("--est", required=True)
+    p.add_argument("--gt", default=None)
+    p.add_argument("--out", required=True)
+    p.add_argument("--euler-csv", default=None,
+                   help="also write t,yaw,pitch,roll CSV (transform_monitor.py output)")
+    p.add_argument("--title", default="trajectory")
+    p.set_defaults(fn=cmd_plot_traj)
+
+    p = sub.add_parser("viz-normals")
+    p.add_argument("--log", required=True)
+    p.add_argument("--traj", required=True)
+    p.add_argument("--out", required=True, help="features+normals PLY")
+    p.add_argument("--map-out", default=None, help="local-map PLY")
+    p.add_argument("--index", type=int, default=-1,
+                   help="sweep index to associate (-1 = last)")
+    p.add_argument("--frames", type=int, default=10,
+                   help="how many previous sweeps build the local map")
+    p.add_argument("--profile", default="indoor", choices=["indoor", "outdoor", "outdoor_64"])
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the card; `cpu` to run on the CPU)")
+    p.set_defaults(fn=cmd_viz_normals)
 
     p = sub.add_parser("export-pcd")
     p.add_argument("--log", required=True)

@@ -320,3 +320,45 @@ def test_run_needs_cuda_unless_told_cpu(seq, tmp_path, monkeypatch, capsys):
     assert rc != 0
     assert "CUDA is not available" in capsys.readouterr().err
     assert not (tmp_path / "t.tum").exists()
+
+
+def _parser_of(main, monkeypatch):
+    """The ArgumentParser a CLI's ``main`` builds (caught at parse_args)."""
+    import argparse
+
+    class Caught(Exception):
+        pass
+
+    def catch(self, *args, **kwargs):
+        raise Caught(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", catch)
+    with pytest.raises(Caught) as got:
+        main([])
+    monkeypatch.undo()
+    return got.value.args[0]
+
+
+def _actions(parser):
+    """{subcommand: {option: (default, choices, type, nargs, required)}}."""
+    import argparse
+
+    sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+    return {name: {a.option_strings[0]: (a.default, a.choices, a.type, a.nargs, a.required)
+                   for a in p._actions if a.option_strings and a.dest != "help"}
+            for name, p in sub.choices.items()}
+
+
+def test_parser_has_every_reference_subcommand_and_flag(monkeypatch):
+    """All nine subcommands of the reference's CLI, each flag with its
+    default, choices, type and arity; the port adds ``--device`` to ``run``
+    and ``viz-normals`` only."""
+    ref = _actions(_parser_of(JCLI.main, monkeypatch))
+    port = _actions(_parser_of(TCLI.main, monkeypatch))
+    assert sorted(port) == sorted(ref) and len(ref) == 9
+    for cmd, flags in ref.items():
+        assert port[cmd].keys() - flags.keys() == ({"--device"} if cmd in ("run", "viz-normals")
+                                                   else set()), cmd
+        for flag, spec in flags.items():
+            assert port[cmd][flag] == spec, (cmd, flag)
+    assert port["viz-normals"]["--device"][0] == port["run"]["--device"][0] == "cuda"

@@ -274,3 +274,31 @@ def test_kernel_at_the_outdoor64_estimator_shape(dev):
     stack) against the 32768-row filtered local map (32 query blocks, 16
     chunks), the local map mostly full."""
     assert _check_gated_at(dev, np.random.default_rng(64), 8192, 32768, 3500, 30000) == (32, 16)
+
+
+@pytest.mark.cuda
+def test_viz_normals_association_kernel_against_plain(dev, tmp_path):
+    """``viz-normals``' association (``cli.normals_view``: the estimator's
+    5-NN plane rows on one sweep against a 10-sweep local map) through the
+    kernel and through the forced plain search: the kernel is launched, the
+    queries and local map are the same, and at most 0.5% of the accepted
+    rows differ (accepted by one only, or normals apart by more than 1e-4:
+    KNN near-ties)."""
+    from lio_mapping_tpu_torch import cli
+    from lio_mapping_tpu_torch.config import LioConfig
+
+    log, gt = str(tmp_path / "seq.liol"), str(tmp_path / "gt.tum")
+    assert cli.main(["simulate", "--out", log, "--sweeps", "12", "--gt-out", gt]) == 0
+    before = TKK.LAUNCHES
+    view = cli.normals_view(log, gt, LioConfig.indoor(), frames=10, device=dev)
+    launches = TKK.LAUNCHES - before
+    plain = cli.normals_view(log, gt, LioConfig.indoor(), frames=10, device=dev,
+                             force_tiled=True)
+    assert launches > 0 and TKK.LAUNCHES - before == launches
+    np.testing.assert_array_equal(view.xyz, plain.xyz)
+    np.testing.assert_array_equal(view.map_xyz, plain.map_xyz)
+    both = view.ok & plain.ok
+    assert both.sum() > 1000
+    apart = np.abs(view.normals[both] - plain.normals[both]).max(axis=1) > 1e-4
+    differing = np.sum(view.ok ^ plain.ok) + np.sum(apart)
+    assert differing <= 0.005 * np.sum(view.ok | plain.ok)

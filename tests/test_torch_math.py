@@ -124,6 +124,27 @@ class TestCopiedHostModules:
         _close(tq_lb, jq_lb, TOL64)
         _close(tt_lb, jt_lb, TOL64)
 
+    @pytest.mark.parametrize("profile", ["indoor", "outdoor_64", "rs32"])
+    def test_yaml_profiles_load_as_the_reference(self, tmp_path, profile):
+        """``load_yaml`` gives the reference's config on the shipped
+        profiles and on the RS-32 sensor block (written as JSON, a subset of
+        YAML, as ``chip_smoke.py`` writes it)."""
+        import json
+        import os
+
+        if profile == "rs32":
+            path = tmp_path / "rs32.yaml"
+            path.write_text(json.dumps({"sensor": {
+                "n_rings": 32, "lower_bound_deg": -25.0, "upper_bound_deg": 15.0,
+                "max_points_per_ring": 2304, "uneven": True}}))
+        else:
+            path = os.path.join(os.path.dirname(__file__), "..", "configs", f"{profile}.yaml")
+        t, j = TCFG.load_yaml(str(path)), JCFG.load_yaml(str(path))
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        if profile == "rs32":
+            assert t.sensor == TCFG.SensorConfig.rs32_uneven()
+            assert t.estimator == TCFG.LioConfig().estimator
+
     def test_synthetic_sweep_and_imu_equal(self):
         kw = dict(pitch_amp=0.4, roll_amp=0.35, rp_freq=0.45)
         tt, jt = TSYN.Trajectory(**kw), JSYN.Trajectory(**kw)
@@ -177,6 +198,38 @@ def test_port_imports_neither_jax_nor_reference():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "BAD []" in out.stdout
+
+
+def test_port_runs_with_jax_and_reference_blocked(tmp_path):
+    """With ``jax`` and ``lio_mapping_tpu`` made unimportable, every module
+    of the port (``io/rosbag`` and ``io/viz`` by name) imports, and the CLI
+    commands that import lazily inside their bodies run: simulate,
+    export-bag, bag-info, convert-bag, viz-normals on the CPU, evaluate."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['lio_mapping_tpu'] = None\n"
+        "import lio_mapping_tpu_torch as P\n"
+        "names = [m.name for m in pkgutil.walk_packages(P.__path__, 'lio_mapping_tpu_torch.')]\n"
+        "assert {'lio_mapping_tpu_torch.io.rosbag', 'lio_mapping_tpu_torch.io.viz'} <= set(names)\n"
+        "for n in names: importlib.import_module(n)\n"
+        "from lio_mapping_tpu_torch.cli import main\n"
+        "d = sys.argv[1]\n"
+        "for args in (['simulate', '--out', d + '/s.liol', '--sweeps', '3', '--azimuth', '120',\n"
+        "              '--gt-out', d + '/gt.tum'],\n"
+        "             ['export-bag', '--log', d + '/s.liol', '--out', d + '/s.bag'],\n"
+        "             ['bag-info', '--bag', d + '/s.bag'],\n"
+        "             ['convert-bag', '--bag', d + '/s.bag', '--out', d + '/c.liol'],\n"
+        "             ['viz-normals', '--log', d + '/c.liol', '--traj', d + '/gt.tum',\n"
+        "              '--out', d + '/n.ply', '--frames', '2', '--device', 'cpu'],\n"
+        "             ['evaluate', '--est', d + '/gt.tum', '--gt', d + '/gt.tum']):\n"
+        "    assert main(args) == 0, args\n"
+        "print('IMPORTED', len(names))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "IMPORTED" in out.stdout and "features with normals" in out.stdout
 
 
 def test_chip_smoke_and_tools_import_neither_jax_nor_reference():
