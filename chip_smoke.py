@@ -13,9 +13,11 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    24576-point voxel-filtered local map, with and without the 1.0 m^2 AABB
    gate), the scan-to-scan odometry's 1-NN searches (1024 vs 8192 surf,
    512 vs 4096 corner points) and LOAM's scan-to-map surf search (6144
-   queries against the 65536-point map store, gated) and the outdoor_64
+   queries against the 65536-point map store, gated), the outdoor_64
    estimator's (8192 queries against a 32768-point local map, gated, from
-   simulated HDL-64 sweeps), on inputs made by the port's own front end and
+   simulated HDL-64 sweeps) and a rank's searches of phase 15's 2-rank mesh
+   (3072 queries against the 24576-point map, and against its 12288-row
+   block when the map is sharded, gated), on inputs made by the port's own front end and
    ``insert_into_map`` from simulated sweeps; at the gated shapes also the
    kernel's tile flags against ``prune_flags``.
    Times from CUDA events after warm-up: the kernel's device work alone,
@@ -29,7 +31,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    INITED with ATE RMSE <= 0.35 m and the KNN kernel ran on the INITED
    sweeps. Then a few more sweeps (a consumed and a skipped one each)
    under ``torch.profiler``, under the CUDA sync-debug mode and under
-   per-stage timers count kernel launches, host syncs and stage times;
+   per-stage timers count kernel launches, host syncs and stage times.
+   Then the same 90 sweeps once more with the estimator's searches on the
+   plain version (``make_knn5`` patched here to ``force_tiled``): its
+   INITED sweep and ATE are printed beside the kernel's, not held;
 5. the CLI in lio mode, each step a subprocess of ``python -m
    lio_mapping_tpu_torch.cli`` in a temporary directory: ``simulate`` 90
    sweeps, ``run --profile indoor`` with ``--map-out`` and
@@ -87,7 +92,18 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    ``cli.normals_view`` with the kernel and with the plain search forced.
    Fails unless the kernel was launched and at most 0.5% of the accepted
    rows differ (accepted by one only, or normals apart by more than 1e-4:
-   KNN near-ties).
+   KNN near-ties);
+15. the distributed estimator, 2 ranks sharing the one card over gloo, on
+   phase 5's log: ``run --mesh 2`` and ``run --mesh 2 --map-shard
+   --ingest-shard`` as subprocesses, then ``run --mesh 2 --map-shard`` with
+   ``use_corner`` on, its 2 ranks spawned from this script so that their
+   searches are counted by path. Each fails unless it ends INITED with ATE
+   RMSE <= 0.35 m, every rank ran on the card, the estimator's surf searches
+   launched the kernel on both ranks, and the ranks' final states are
+   bit-identical; the corner run also unless its corner searches launched
+   the kernel never while the plain version ran for them. Printed beside
+   phase 5's: the backend, the bytes copied through the host, the ATE, the
+   median step and the collectives per consumed sweep.
 
 The sweeps of phases 4, 8 and 13 are simulated in worker processes, and
 phases 5 and 11's ``simulate`` subprocesses run side by side, before any
@@ -290,6 +306,13 @@ def knn_cases(traj, cfg):
          f_b.corner_sharp.mask.contiguous(), f_a.corner_less_sharp.xyz.contiguous(),
          f_a.corner_less_sharp.mask.contiguous(), 1, None),
         ("mapping_5nn_gated", *stores["surf"], 5, cfg.mapping.min_match_sq_dis),
+        # a rank of phase 15's 2-rank mesh: its half of the stack's rows
+        # against the whole map, and against its half of the map's rows
+        # (one ring step of the map-sharded search)
+        ("estimator_mesh2_5nn_gated", q_xyz[:len(q_xyz) // 2], q_mask[:len(q_xyz) // 2],
+         map_xyz, map_mask, 5, GATE),
+        ("estimator_mesh2_block_5nn_gated", q_xyz[:len(q_xyz) // 2], q_mask[:len(q_xyz) // 2],
+         map_xyz[:len(map_xyz) // 2], map_mask[:len(map_xyz) // 2], 5, GATE),
     ]
     return cases, stores["corner"]
 
@@ -797,6 +820,36 @@ def main_path(seq, traj):
         counts.append(c)
     log("per_sweep_counts " + json.dumps(counts))
     return summary, by_path
+
+
+def plain_closed_loop(seq, traj, kernel_summary):
+    """Phase 4's sequence once more with every estimator search on the plain
+    version (``make_knn5`` patched to ``force_tiled``): the closed loop
+    without the kernel, printed beside the kernel's, not held."""
+    orig = EST.make_knn5
+
+    def tiled(map_xyz, map_mask, cfg, axis=None, force_tiled=False):
+        return orig(map_xyz, map_mask, cfg, axis=axis, force_tiled=True)
+
+    EST.make_knn5 = tiled
+    try:
+        pipe = LioPipeline(LioConfig.indoor(), device=DEV, dtype=torch.float32)
+        recs, poses, by_path, plain, _, run_s = drive(
+            pipe, seq[:N_SWEEPS], {"lio_estimator_plain_knn": (EST, "lio_step_impl"),
+                                   "lio_odometry_plain_knn": (ODO, "odometry_step")},
+            plain={"lio_estimator_plain_knn": (EST, "lio_step_impl")})
+    finally:
+        EST.make_knn5 = orig
+    summary = summarize(recs, poses, seq[:N_SWEEPS], traj, by_path, run_s)
+    row = {"stage": summary["stage"], "inited_at_sweep": summary["inited_at_sweep"],
+           "ate_rmse_m": summary["ate_rmse_m"],
+           "kernel_inited_at_sweep": kernel_summary["inited_at_sweep"],
+           "kernel_ate_rmse_m": kernel_summary["ate_rmse_m"],
+           "estimator_kernel_launches": by_path.get("lio_estimator_plain_knn", 0),
+           "estimator_plain_searches": plain.get("lio_estimator_plain_knn", 0),
+           "steady_consumed_ms_mean": summary["steady_consumed_ms_mean"], "run_s": run_s}
+    log("plain_closed_loop " + json.dumps(row))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1367,6 +1420,114 @@ def viz_path(workdir):
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the distributed estimator
+# ---------------------------------------------------------------------------
+
+
+def corner_rank(rank, world, address, argv, out_dir):
+    """One rank of phase 15's use_corner run: ``cli._run_rank`` on the
+    indoor profile with ``use_corner``, its searches counted by path (the
+    kernel's launches, and the plain version's searches of the corner
+    association); writes them to ``corner<rank>.json``."""
+    base = LioConfig.indoor()
+    cfg = dataclasses.replace(base, estimator=dataclasses.replace(base.estimator,
+                                                                  use_corner=True))
+    cli._profile = lambda name, path=None: cfg
+    args = cli.build_parser().parse_args(argv)
+    kernel, plain = {}, {}
+    with launches_by_path(kernel, {"corner": (EST, "_calculate_corner_features"),
+                                   "surf": (EST, "_calculate_features")}), \
+            plain_searches(plain, {"corner": (EST, "_calculate_corner_features")}):
+        rc = cli._run_rank(rank, world, address, args)
+    with open(os.path.join(out_dir, f"corner{rank}.json"), "w") as f:
+        json.dump({"kernel": kernel, "plain": plain}, f)
+    return rc
+
+
+def mesh_paths(workdir, single):
+    """Phase 15: the distributed estimator on phase 5's log, 2 ranks on the
+    one card: two CLI subprocesses and the use_corner run from here."""
+    from lio_mapping_tpu_torch.parallel import multihost as MH
+
+    p = lambda name: os.path.join(workdir, name)  # noqa: E731
+    runs, by_path = [], {}
+    common = ["run", "--log", "seq.liol", "--profile", "indoor", "--mesh", "2"]
+    for tag, flags in (("mesh2", []), ("mesh2_mapshard_ingest", ["--map-shard",
+                                                                  "--ingest-shard"])):
+        t0 = time.perf_counter()
+        cli_call(workdir, *common, *flags, "--out", f"traj_{tag}.tum",
+                 "--stats-json", f"stats_{tag}.json")
+        runs.append((tag, time.perf_counter() - t0, None))
+    t0 = time.perf_counter()
+    tag = "mesh2_mapshard_corner"
+    argv = common + ["--map-shard", "--log", p("seq.liol"), "--out", p(f"traj_{tag}.tum"),
+                     "--stats-json", p(f"stats_{tag}.json")]
+    rc = MH.launch(2, corner_rank, argv, workdir)  # rank 0 prints to this stdout
+    if rc != 0:
+        raise AssertionError(f"the use_corner mesh run exited {rc}")
+    corner = []
+    for r in range(2):
+        with open(p(f"corner{r}.json")) as f:
+            corner.append(json.load(f))
+    runs.append((tag, time.perf_counter() - t0, corner))
+
+    rows = []
+    for tag, wall_s, corner in runs:
+        ev = cli_call(workdir, "evaluate", "--est", f"traj_{tag}.tum", "--gt", "gt.tum")
+        with open(p(f"stats_{tag}.json")) as f:
+            stats = json.load(f)
+        mesh = stats["mesh"]
+        row = {"run": tag, "stage": stats["stage"],
+               "ate_rmse_m": float(_grab(r"ATE RMSE: ([0-9.]+) m", ev, "ATE")),
+               "ate_rmse_m_single": single["ate_rmse_m"],
+               "per_step_ms_median": stats["per_step_ms_median"],
+               "per_step_ms_median_single": single["stats"]["per_step_ms_median"],
+               "fps_steady": stats["fps_steady"],
+               "fps_steady_single": single["stats"]["fps_steady"],
+               "loop_wall_s": stats["loop_wall_s"], "wall_s": wall_s,
+               "n_pairs": stats["n_pairs"], "backend": mesh["backend"],
+               "consumed_sweeps": mesh["consumed_sweeps"],
+               "collectives_per_consumed_sweep": mesh["collectives_per_consumed_sweep"],
+               "bytes_per_consumed_sweep": mesh["bytes_per_consumed_sweep"],
+               "host_bytes_per_consumed_sweep": mesh["host_bytes_per_consumed_sweep"],
+               "host_bytes": [r["host_bytes"] for r in mesh["per_rank"]],
+               "devices": [r["device"] for r in mesh["per_rank"]],
+               "knn_launches": [r["knn_launches"] for r in mesh["per_rank"]],
+               "estimator_knn_launches": [r["estimator_knn_launches"]
+                                          for r in mesh["per_rank"]],
+               "rank_split_s": [{k: r[k] for k in ("loop_s", "step_s", "collective_s")}
+                                for r in mesh["per_rank"]],
+               "states_equal": mesh["states_equal"], "corner_by_rank": corner}
+        log("mesh_path " + json.dumps(row))
+        if row["stage"] != "INITED":
+            raise AssertionError(f"{tag} ended {row['stage']}, not INITED")
+        if stats["n_pairs"] != N_SWEEPS - 1 or mesh["ranks"] != 2:
+            raise AssertionError(f"{tag}: {stats['n_pairs']} pairs on {mesh['ranks']} ranks")
+        if not row["ate_rmse_m"] <= ATE_LIMIT:
+            raise AssertionError(f"{tag} ATE RMSE {row['ate_rmse_m']} m > {ATE_LIMIT} m")
+        if not all(d.startswith("cuda") for d in row["devices"]):
+            raise AssertionError(f"{tag}: a rank ran off the card: {row['devices']}")
+        if min(row["estimator_knn_launches"]) <= 0:
+            raise AssertionError(f"{tag}: the estimator's searches did not launch the kernel "
+                                 f"on every rank: {row['estimator_knn_launches']}")
+        if not row["states_equal"]:
+            raise AssertionError(f"{tag}: the ranks' final states differ")
+        if corner is not None:
+            for r, c in enumerate(corner):
+                if c["kernel"].get("surf", 0) <= 0:
+                    raise AssertionError(f"{tag} rank {r}: the surf searches did not launch "
+                                         "the kernel")
+                if c["kernel"].get("corner", 0) != 0 or c["plain"].get("corner", 0) <= 0:
+                    raise AssertionError(f"{tag} rank {r}: the corner searches must run the "
+                                         f"plain version only: {c}")
+            by_path[f"{tag}_surf"] = sum(c["kernel"]["surf"] for c in corner)
+            by_path[f"{tag}_corner"] = sum(c["kernel"].get("corner", 0) for c in corner)
+        by_path[tag] = sum(row["knn_launches"])
+        rows.append(row)
+    return rows, by_path
+
+
 def main():
     t_start = time.perf_counter()
     torch.manual_seed(SEED)
@@ -1402,6 +1563,7 @@ def main():
         seq = simulate_sequence(pool, traj, N_SWEEPS + N_EXTRA)
         log(f"simulated {len(seq)} sweeps in {time.perf_counter() - t0:.1f} s")
         summary, lio_paths = main_path(seq, traj)
+        plain_loop = plain_closed_loop(seq, traj, summary)
 
         # phases 5 and 11's logs, simulated side by side
         simulating = [cli_start(workdir, "simulate", "--out", "seq.liol", "--gt-out", "gt.tum",
@@ -1425,6 +1587,7 @@ def main():
         bag = cli_bag(workdir, single)
         _, rs32_paths = rs32_path(workdir, pool)
         _, viz_launches = viz_path(workdir)
+        _, mesh_by_path = mesh_paths(workdir, single)
 
     # the device time of each of the search's kernels, under torch.profiler
     # (after every timed run: the profiler may slow later host work)
@@ -1446,9 +1609,11 @@ def main():
     main_row = next(r for r in rows if r["case"] == "estimator_5nn_gated")
     map_row = next(r for r in rows if r["case"] == "mapping_5nn_gated")
     o64_row = next(r for r in rows if r["case"] == "estimator64_5nn_gated")
+    mesh_rows = {tag: next(r for r in rows if r["case"] == f"estimator_{tag}_5nn_gated")
+                 for tag in ("mesh2", "mesh2_block")}
     by_path = {**lio_paths, **loam_paths, **o64_paths, **corner_by_path, **four_d_paths,
                "cli_outdoor": outdoor["knn_launches"], "cli_bag": bag["knn_launches"],
-               **rs32_paths, "viz_normals": viz_launches}
+               **rs32_paths, "viz_normals": viz_launches, **mesh_by_path}
     kernels = [{
         "name": "knn", "route": "cuda", "source": "lio_mapping_tpu_torch/csrc/knn.cu",
         "replaces": "lio_mapping_tpu/ops/pallas/knn_kernel.py:167",
@@ -1457,6 +1622,8 @@ def main():
         "scan_to_map": {"shape": [map_row["Q"], map_row["M"], map_row["k"]], **times(map_row),
                         "corner_plain_ms": corner_row["plain_ms"]},
         "outdoor64": {"shape": [o64_row["Q"], o64_row["M"], o64_row["k"]], **times(o64_row)},
+        **{tag: {"shape": [r["Q"], r["M"], r["k"]], **times(r)} for tag, r in mesh_rows.items()},
+        "plain_closed_loop": {k: plain_loop[k] for k in ("inited_at_sweep", "ate_rmse_m")},
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -7,6 +7,7 @@
         [--config profile.yaml] [--self-filter] [--timing] [--trace-dir d]
         [--stats-json s.json] [--checkpoint-out c.npz --checkpoint-every N]
         [--resume c.npz] [--two-phase] [--enable-4d --out-4d traj_4d.tum]
+        [--mesh N [--map-shard] [--ingest-shard]]
     python -m lio_mapping_tpu_torch.cli evaluate --est traj.tum --gt gt.tum
     python -m lio_mapping_tpu_torch.cli export-pcd --log seq.liol \
         --traj traj.tum --out map.pcd
@@ -43,18 +44,31 @@ rebuilds the estimator's plane association at one sweep, on the card
 unless given ``--device cpu`` (without CUDA it stops with an error), so
 its 5-NN search runs the CUDA KNN kernel.
 
-Not ported yet, refused with exit code 2: ``--mesh``, ``--map-shard`` and
-``--ingest-shard`` (multi-GPU). ``--compile-cache`` is accepted and has
-nothing to do: the port compiles no XLA programs (its native library and
-kernel are built once into ``_build/``). Two faults of the reference are
-fixed here: ``--two-phase`` applies ``--self-filter`` to the initialisation
-sweep it puts back into the map, and the log reader keeps each sweep in its
-own handle.
+``run --mesh N`` runs the estimator distributed over N ranks
+(``parallel/``): it starts N processes itself (spawned, rendezvous on a free
+local port), each joins the process group and runs the whole host loop on
+the same log; the estimator step rank-slices its association and sums its
+normal equations over the ranks (``--map-shard``: the local map too, ring
+KNN; ``--ingest-shard``: each rank uploads only its rows of each cloud).
+The backend is gloo on the CPU, nccl with a card per rank, else gloo with
+ranks sharing the cards. Rank 0 alone prints and writes the files; the
+command exits with the worst exit code of its ranks. Without ``--mesh``,
+``--map-shard`` and ``--ingest-shard`` are ignored, and ``--mode loam``
+ignores ``--mesh``, as in the reference.
+
+``--compile-cache`` is accepted and has nothing to do: the port compiles no
+XLA programs (its native library and kernel are built once into
+``_build/``). Three faults of the reference are fixed here: ``--two-phase``
+applies ``--self-filter`` to the initialisation sweep it puts back into
+the map, the log reader keeps each sweep in its own handle, and a resumed
+run (``--skip-pairs``) does not copy the skipped pairs' clouds to the
+device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -64,10 +78,6 @@ from typing import NamedTuple
 import numpy as np
 
 PAD_Q = 4096  # sweep rows are padded to a multiple of this (masked rows)
-# (flag, attribute, ROADMAP item) of the options that are not ported yet
-_UNPORTED = (("--mesh", "mesh", "16 (multi-GPU)"),
-             ("--map-shard", "map_shard", "16 (multi-GPU)"),
-             ("--ingest-shard", "ingest_shard", "16 (multi-GPU)"))
 
 
 def _profile(name: str, config_path: str = None):
@@ -147,6 +157,13 @@ def _run_two_phase(args):
             base += ["--config", args.config]
         if args.self_filter:
             base.append("--self-filter")
+        # both phases run the same mesh: it changes the order of the sums
+        if args.mesh:
+            base += ["--mesh", str(args.mesh)]
+        if args.map_shard:
+            base.append("--map-shard")
+        if args.ingest_shard:
+            base.append("--ingest-shard")
         rc = subprocess.call(base + ["--out", prefix, "--checkpoint-out", ckpt,
                                      "--stop-at-init", sidecar], env=env)
         if rc != 0:
@@ -208,11 +225,37 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _state_digest(pipe) -> str:
+    """sha256 of every tensor of the pipeline's estimator state (its bytes
+    on the host): equal digests mean bit-identical states."""
+    import hashlib
+
+    import torch
+
+    from .utils.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(pipe.est_state):
+        h.update(leaf.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _run_rank(rank, world, address, args):
+    """One rank of ``run --mesh``: join the process group, run the replay,
+    leave the group. Ranks other than 0 print nothing but errors."""
+    from .parallel import multihost as MH
+
+    mesh = MH.initialize(address, world, rank, device=args.device)
+    try:
+        if rank == 0:
+            return _replay(args, mesh)
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            return _replay(args, mesh)
+    finally:
+        MH.shutdown()
+
+
 def cmd_run(args):
-    for flag, attr, item in _UNPORTED:
-        if getattr(args, attr):
-            print(f"error: {flag} is not ported yet (ROADMAP item {item})", file=sys.stderr)
-            return 2
     if args.stop_at_init and not args.checkpoint_out:
         # without a checkpoint the sidecar would claim `inited` with nothing
         # for phase B to resume from
@@ -224,14 +267,23 @@ def cmd_run(args):
               "`run --resume`)", file=sys.stderr)
         return 2
 
-    import torch
-
     if _no_cuda(args.device):
         return 2
-    device = torch.device(args.device)
     if args.two_phase:
         return _run_two_phase(args)
+    if args.mesh and args.mode == "lio":
+        from .parallel import lio_dist
+        from .parallel import multihost as MH
 
+        # refused before any rank starts, with the reference's error
+        lio_dist.check_caps(_profile(args.profile, args.config), args.mesh)
+        return MH.launch(args.mesh, _run_rank, args)
+    return _replay(args)
+
+
+def _replay(args, mesh=None):
+    """The replay of ``run`` (single process, or one rank of ``mesh``)."""
+    import torch
     from scipy.spatial.transform import Rotation
 
     from . import native
@@ -241,15 +293,26 @@ def cmd_run(args):
     from .utils.timing import StageTimer, device_trace
 
     cfg = _profile(args.profile, args.config)
+    device = mesh.device if mesh is not None else torch.device(args.device)
+    writer = mesh is None or mesh.rank == 0  # the rank that prints and writes files
     if args.mode == "loam":
         pipe = PL.LoamPipeline(cfg, device=device, dtype=torch.float32)
     else:
-        pipe = PL.LioPipeline(cfg, device=device, dtype=torch.float32)
+        if mesh is not None:
+            where = (f"{torch.cuda.device_count()} card(s)" if device.type == "cuda"
+                     else "the CPU")
+            mode = "".join(f" ({m})" for m, on in (("map-sharded", args.map_shard),
+                                                    ("ingest-sharded", args.ingest_shard)) if on)
+            print(f"distributed estimator over {mesh.size} ranks on {where}, backend "
+                  f"{mesh.backend}{mode}")
+        pipe = PL.LioPipeline(cfg, device=device, dtype=torch.float32, mesh=mesh,
+                              map_shard=args.map_shard, ingest_shard=args.ingest_shard)
     if args.resume:
         pipe.load(args.resume)
         print(f"resumed from {args.resume} (frame {pipe.frame_count})")
     mq = native.MeasurementQueue(cfg.estimator.msg_time_delay)
-    global_map = native.GlobalVoxelMap(cfg.mapping.map_filter_size) if args.map_out else None
+    global_map = (native.GlobalVoxelMap(cfg.mapping.map_filter_size)
+                  if args.map_out and writer else None)
     timer = StageTimer(enabled=args.timing, sync=args.timing)
     knn_launches0 = knn_kernel.LAUNCHES
 
@@ -257,7 +320,7 @@ def cmd_run(args):
     # (launch/map_4D_indoor.launch:9-15)
     mb_state = None
     times_4d, qs_4d, ts_4d = [], [], []
-    if args.enable_4d:
+    if args.enable_4d and writer:  # its poses are output only: rank 0 runs it
         from .models import map_builder as MB
         from .models import mapping as MAPM
 
@@ -286,7 +349,7 @@ def cmd_run(args):
     # wall-clock split of the replay: step dispatch, flush readbacks, and
     # host ingest (log parse + queue + interpolation: the remainder)
     stats = {"t_step": 0.0, "t_flush": 0.0, "t_first_step": 0.0, "n_pairs": 0,
-             "step_times": []}
+             "step_times": [], "n_consumed": 0, "est_launches": 0}
 
     def flush():
         f0 = time.perf_counter()
@@ -323,6 +386,7 @@ def cmd_run(args):
         if self_rot is not None:
             with timer.stage("self_filter"):
                 mask = self_filter(xyz, mask)
+        k0 = knn_kernel.LAUNCHES
         with timer.stage("pipeline", sync_on=device):
             if args.mode == "loam":
                 out = pipe.process(xyz, mask, ring_ids=ring)
@@ -333,6 +397,9 @@ def cmd_run(args):
         pose = out.get("laser_pose")
         if pose is None:
             return
+        if "n_features" in out:  # an estimator step ran
+            stats["n_consumed"] += 1
+            stats["est_launches"] += knn_kernel.LAUNCHES - k0
         if mb_state is not None and out.get("stage") == "INITED" \
                 and "corner_cloud" in out and not out.get("predicted"):
             with timer.stage("map_builder", sync_on=device):
@@ -349,7 +416,7 @@ def cmd_run(args):
             map_pend.append((len(pend_t) - 1, np.asarray(xyz)[mask]))
         if len(pend_t) >= FLUSH_EVERY:
             flush()
-        if args.checkpoint_out and args.checkpoint_every and \
+        if args.checkpoint_out and args.checkpoint_every and writer and \
                 (len(times) + len(pend_t)) % args.checkpoint_every == 0:
             with timer.stage("checkpoint"):
                 pipe.save(args.checkpoint_out)
@@ -381,7 +448,7 @@ def cmd_run(args):
     pair_idx = 0
     stopped_early = False
     loop_t0 = time.perf_counter()
-    with device_trace(args.trace_dir):
+    with device_trace(args.trace_dir if writer else None):
         for item in native.SequenceLog(args.log):
             if stopped_early:
                 break
@@ -400,11 +467,14 @@ def cmd_run(args):
                     if ring is not None:
                         ring = np.concatenate([ring, np.zeros(n_pad - n_raw, ring.dtype)])
                 # start the cloud's copy to the device now, while earlier
-                # sweeps still run; skipped-cadence sweeps never copy, and
-                # the self-filter edits the mask on the host first
+                # sweeps still run; skipped-cadence sweeps and the pairs a
+                # resumed run skips never copy, and the self-filter edits the
+                # mask on the host first. This sweep becomes pair ``ahead``;
+                # the pipeline steps once per pair past the skip window
+                ahead = pair_idx + len(sweeps)
                 pf = None
-                if args.mode == "lio" and not args.self_filter \
-                        and pipe.will_consume(len(sweeps) + 1):
+                if args.mode == "lio" and not args.self_filter and ahead >= skip_pairs \
+                        and pipe.will_consume(ahead - max(pair_idx, skip_pairs) + 1):
                     pf = pipe.prefetch_cloud(xyz, mask, ring)
                 sweeps[next_id] = (xyz, mask, ring, pf)
                 mq.push_sweep(item[1], next_id)
@@ -456,7 +526,7 @@ def cmd_run(args):
                     break
     disp_ms = None
     probe_cost = 0.0
-    if args.stats_json:
+    if args.stats_json and writer:
         probe_t0 = time.perf_counter()
         # dispatch floor, before the final flush's readbacks: the mean time
         # of one small program enqueued back to back (on the card, the
@@ -478,6 +548,11 @@ def cmd_run(args):
 
     flush()
     loop_wall = time.perf_counter() - loop_t0 - probe_cost
+    ranks = None
+    if mesh is not None and args.mode == "lio":
+        ranks = _mesh_report(mesh, pipe, knn_kernel.LAUNCHES - knn_launches0, stats, loop_wall)
+    if not writer:
+        return 0
 
     if args.stats_json:
         n = stats["n_pairs"]
@@ -505,7 +580,9 @@ def cmd_run(args):
             "dispatch_floor_ms": round(disp_ms, 3) if disp_ms else None,
             "clean_stream": bool(disp_ms and disp_ms < 0.5),
             "mode": args.mode,
+            "stage": pipe.stage if args.mode == "lio" else "LOAM",
             "resumed": bool(args.resume),
+            "mesh": ranks,
         }
         with open(args.stats_json, "w") as f:
             json.dump(payload, f)
@@ -554,6 +631,37 @@ def cmd_run(args):
         print(timer.report())
         print(f"knn kernel launches: {knn_kernel.LAUNCHES - knn_launches0}")
     return 0
+
+
+def _mesh_report(mesh, pipe, knn_launches: int, stats: dict, loop_wall: float) -> dict:
+    """Every rank's device, kernel launches (all, and those of the estimator
+    steps), collective counters, time split (replay loop, pipeline steps,
+    inside collectives) and state digest, gathered to each rank (one
+    ``all_gather_object``, not counted); rank 0 prints the collectives per
+    consumed sweep. Returns the record ``--stats-json`` keeps under
+    ``mesh``."""
+    import torch.distributed as dist
+
+    n_consumed = stats["n_consumed"]
+    mine = {"rank": mesh.rank, "device": str(mesh.device), "knn_launches": knn_launches,
+            "estimator_knn_launches": stats["est_launches"], **mesh.counters(),
+            "loop_s": loop_wall, "step_s": stats["t_step"],
+            "state_sha256": _state_digest(pipe)}
+    per_rank = [None] * mesh.size
+    dist.all_gather_object(per_rank, mine, group=mesh.group)
+    per = max(n_consumed, 1)
+    rec = {"ranks": mesh.size, "backend": mesh.backend, "consumed_sweeps": n_consumed,
+           "collectives_per_consumed_sweep": mine["collectives"] / per,
+           "bytes_per_consumed_sweep": mine["bytes"] / per,
+           "host_bytes_per_consumed_sweep": mine["host_bytes"] / per,
+           "states_equal": len({r["state_sha256"] for r in per_rank}) == 1,
+           "per_rank": per_rank}
+    print(f"collectives: {mine['collectives']} over {n_consumed} consumed sweeps "
+          f"({rec['collectives_per_consumed_sweep']:.1f} per sweep, "
+          f"{rec['bytes_per_consumed_sweep'] / 1e6:.3f} MB per sweep); "
+          f"copied through the host: {mine['host_bytes']} bytes; backend {mesh.backend}; "
+          f"rank states {'equal' if rec['states_equal'] else 'DIFFER'}")
+    return rec
 
 
 def cmd_export_pcd(args):
@@ -823,11 +931,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for the reference's command lines; the port has no XLA "
                         "compilation to cache (its kernel and native library are built "
                         "once into _build/)")
-    # parsed, but not ported yet: refused with exit code 2
-    p.add_argument("--mesh", type=int, default=0, help="not ported yet (ROADMAP item 16)")
-    p.add_argument("--map-shard", action="store_true", help="not ported yet (ROADMAP item 16)")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="run the estimator step distributed over this many "
+                        "devices (full lio_step, one process per device)")
+    p.add_argument("--map-shard", action="store_true",
+                   help="with --mesh: shard the local map too "
+                        "(ppermute-ring association)")
     p.add_argument("--ingest-shard", action="store_true",
-                   help="not ported yet (ROADMAP item 16)")
+                   help="with --mesh: each process/device transfers only "
+                        "its row slice of the packed cloud (on-device "
+                        "all_gather reassembles it)")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("evaluate")

@@ -24,8 +24,15 @@ The mini-GN and LM early exits are Python loops that read one device flag
 per round (a host sync each); the surf searches go through
 ``ops.knn.knn``, which launches the CUDA kernel on the card.
 
-Not ported (it raises ``NotImplementedError``): the distributed
-``axis``/``map_shard`` step.
+Distributed (``axis``, a ``parallel.multihost.Mesh``; see
+``parallel/lio_dist.py``): every rank runs the step on the same inputs and
+associates its slice of each stack's rows; the mini-GN's normal equations,
+the gates' plane cost, the window LM and the marginalization sum their
+plane terms over the ranks, so every rank ends with the same state. With
+``map_shard`` the local map is rank-sliced too and the searches run the
+ring KNN (``parallel/map_sharded.ring_knn``); the corner search stays on
+the plain version there as well (the reference does not pin it on this
+path; the port does).
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ from ..ops import solver as SV
 from ..ops import voxel as VX
 from ..ops.cloud import Cloud
 from ..ops.fits import line_fit, plane_fit, point_to_line_residual
+from ..parallel import map_sharded as MS
+from ..parallel import multihost as MH
 from ..utils import quaternion as quat
 from ..utils.se3 import Pose
 from ..utils.tree import tree_map
@@ -147,14 +156,22 @@ def _fov_ok(point_sel, local_q, local_t):
     return (check1 < 0) & (check2 > 0)
 
 
-def make_knn5(map_xyz, map_mask, cfg: LioConfig, axis=None, force_tiled: bool = False):
+def make_knn5(map_xyz, map_mask, cfg: LioConfig, axis: MH.Mesh = None,
+              force_tiled: bool = False):
     """5-NN closure over a local map: (point_sel, sel_mask) ->
     (sq_d (N,5), neighbors (N,5,3)). On the card the search runs the CUDA
     kernel with the AABB gate at ``min_match_sq_dis``; ``force_tiled``
-    keeps it on the plain tiled version (the corner map's search)."""
-    if axis is not None:
-        raise NotImplementedError("map-sharded ring KNN (multi-GPU) is not ported yet")
+    keeps it on the plain tiled version (the corner map's search). With
+    ``axis`` the map is this rank's block of a map sharded over the mesh,
+    searched by the ring KNN (``force_tiled`` reaches every ring step)."""
     e = cfg.estimator
+    if axis is not None:
+        def knn5_ring(point_sel, sel_mask):
+            sq_d, _, neighbors = MS.ring_knn(point_sel, sel_mask, map_xyz, map_mask, k=5,
+                                             axis=axis, prune_beyond=e.min_match_sq_dis,
+                                             force_tiled=force_tiled)
+            return sq_d, neighbors
+        return knn5_ring
 
     def knn5(point_sel, sel_mask):
         sq_d, idx = KNN.knn(point_sel, sel_mask, map_xyz, map_mask, k=5,
@@ -239,14 +256,14 @@ def _stack_points(stacks, cfg: LioConfig):
 
 
 def _calculate_laser_odom(assoc, stacks, local_q, local_t, cfg: LioConfig,
-                          n_iters: int = 10, axis: str = None):
+                          n_iters: int = 10, axis: MH.Mesh = None):
     """Mini scan-to-local-map GN for the newest frame (CalculateLaserOdom,
     Estimator.cc:1242-1359), <= ``n_iters`` rounds with the 0.05 deg /
     0.05 cm early abort; with ``keep_features`` each round's rows
-    accumulate. Returns (lq, lt, pts, coeff_acc (n_iters, F, 4),
-    ok_acc (n_iters, F), n_exec) with n_exec a Python int."""
-    if axis is not None:
-        raise NotImplementedError("sharded mini-GN (multi-GPU) is not ported yet")
+    accumulate; with ``axis`` the rows are this rank's and the 6x6 normal
+    equations are summed over the ranks. Returns (lq, lt, pts, coeff_acc
+    (n_iters, F, 4), ok_acc (n_iters, F), n_exec) with n_exec a Python
+    int."""
     e = cfg.estimator
     dtype, dev = local_t.dtype, local_t.device
     pts = _stack_points(stacks, cfg)
@@ -277,6 +294,9 @@ def _calculate_laser_odom(assoc, stacks, local_q, local_t, cfg: LioConfig,
         jw = jac * wrow[:, None]
         ata = jw.T @ jac
         atb = jw.T @ (-d2)
+        if axis is not None:
+            ab = MH.psum(torch.cat([ata, atb[:, None]], dim=1), axis)
+            ata, atb = ab[:, :6], ab[:, 6]
         x = torch.linalg.solve(ata + 1e-9 * eye6, atb)
         if it == 0:
             g = GN.degeneracy_projection(ata, 100.0)
@@ -381,11 +401,10 @@ def local_map(st: EstimatorState, cfg: LioConfig):
 
 
 def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSamples,
-                  cfg: LioConfig, corner_cloud: Cloud = None, axis: str = None,
+                  cfg: LioConfig, corner_cloud: Cloud = None, axis: MH.Mesh = None,
                   map_shard: bool = False) -> Tuple[EstimatorState, dict]:
-    """The full per-sweep estimator step (see the module docstring)."""
-    if axis is not None or map_shard:
-        raise NotImplementedError("the distributed estimator step (multi-GPU) is not ported yet")
+    """The full per-sweep estimator step (see the module docstring);
+    ``map_shard`` without ``axis`` changes nothing."""
     e = cfg.estimator
     s_opt = e.opt_window_size
     w = e.window_size
@@ -394,14 +413,30 @@ def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSampl
 
     st = predict_and_push(state, surf_cloud, samples, cfg, corner_cloud)
     rel, maps = local_map(st, cfg)
-    assoc = (make_knn5(maps[0], maps[1], cfg),)
-    if e.use_corner:
-        assoc += (make_knn5(maps[2], maps[3], cfg, force_tiled=True),)
+
+    # association sharding (distributed step only): this rank's rows
+    def shard_rows(arr, mask):
+        if axis is None:
+            return arr, mask
+        lo = axis.rank * (arr.shape[0] // axis.size)
+        hi = lo + arr.shape[0] // axis.size
+        return arr[lo:hi], mask[lo:hi]
+
+    if axis is not None and map_shard:
+        assoc = (make_knn5(*shard_rows(maps[0], maps[1]), cfg, axis=axis),)
+        if e.use_corner:
+            assoc += (make_knn5(*shard_rows(maps[2], maps[3]), cfg, axis=axis,
+                                force_tiled=True),)
+    else:
+        assoc = (make_knn5(maps[0], maps[1], cfg),)
+        if e.use_corner:
+            assoc += (make_knn5(maps[2], maps[3], cfg, force_tiled=True),)
 
     def frame_stacks(i):
+        sx, sm = shard_rows(st.surf_xyz[i], st.surf_mask[i])
         if e.use_corner:
-            return (st.surf_xyz[i], st.surf_mask[i], st.corner_xyz[i], st.corner_mask[i])
-        return (st.surf_xyz[i], st.surf_mask[i])
+            return (sx, sm) + shard_rows(st.corner_xyz[i], st.corner_mask[i])
+        return (sx, sm)
 
     # features for frames pivot+1 .. window-1
     feat_pts, feat_coeff, feat_ok = [], [], []
@@ -417,7 +452,7 @@ def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSampl
     newest_rounds = 0
     if n_ref > 0:
         _, _, pts_n, coeff_acc, ok_acc, n_exec = _calculate_laser_odom(
-            assoc, frame_stacks(w), rel.q[w], rel.t[w], cfg, n_ref)
+            assoc, frame_stacks(w), rel.q[w], rel.t[w], cfg, n_ref, axis=axis)
         newest_rounds = n_exec
         last = max(n_exec - 1, 0)
         coeff_n, ok_n = coeff_acc[last], ok_acc[last]
@@ -459,6 +494,9 @@ def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSampl
     costs0 = SV.group_costs(groups0)
     cost_plane0 = costs0["plane"] + costs0.get("plane_extra",
                                                torch.zeros((), dtype=dtype, device=dev))
+    if axis is not None:
+        # plane rows are sharded; the gates must see the global cost
+        cost_plane0 = MH.psum(cost_plane0, axis)
     costs0["plane"] = cost_plane0
     costs0.pop("plane_extra", None)
     turn_off = costs0["imu"] > e.convergence_cost_pim_th
@@ -478,7 +516,7 @@ def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSampl
         x0, pres_opt, state.g_vec, planes, prior_in, ex_prior,
         s=s_opt, max_iterations=e.max_solver_iterations, cauchy_scale=e.cauchy_loss_scale,
         opt_extrinsic=opt_ex, use_marg=True, eval0=eval0, imu_sqrt_infos=imu_sqrt_infos,
-        planes_extra=planes_extra, ftol=e.solver_ftol)
+        planes_extra=planes_extra, psum_axis=axis, ftol=e.solver_ftol)
 
     # yaw-gauge fix (DoubleToVector, Estimator.cc:2479-2568)
     r_pivot_old = quat.to_matrix(st.qs[pivot])
@@ -516,7 +554,7 @@ def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSampl
     do_marg = torch.tensor(e.marginalization_factor, device=dev) & (~turn_off)
     new_prior = SV.marginalize_pivot(
         x_fixed, tree_map(lambda a: a[0], pres_opt), state.g_vec, planes, prior_in,
-        s=s_opt, cauchy_scale=e.cauchy_loss_scale, planes_extra=planes_extra)
+        s=s_opt, cauchy_scale=e.cauchy_loss_scale, psum_axis=axis, planes_extra=planes_extra)
     prior_out = tree_map(lambda new, old: torch.where(do_marg, new, old),
                          new_prior, st.prior._replace(valid=prior_in.valid))
 

@@ -13,12 +13,18 @@ results to the device explicitly. A sweep's cloud travels as one packed
 (N, 4|5) float array (x, y, z, mask[, ring]); ``prefetch_cloud`` starts
 that copy early from a pinned host buffer.
 
+``LioPipeline(mesh=...)``: this process is one rank of a mesh
+(``parallel/multihost.py``); every rank feeds the same sweeps, runs the
+front end, the bootstrap and the IMU predicts itself, and runs the
+estimator step distributed (``parallel/lio_dist.py``), so every rank holds
+the same state and outputs. ``map_shard`` shards the local map too;
+``ingest_shard`` uploads only this rank's rows of each packed cloud and
+reassembles the cloud on the device (``multihost.all_gather_rows``) before
+the front end. Without a mesh both are ignored, as in the reference.
+
 ``LoamPipeline``: the LiDAR-only baseline, front end -> scan-to-scan
 odometry -> scan-to-map refinement (``models/mapping.py``) every
 ``odometry.io_ratio``-th sweep.
-
-Not ported: the device mesh (``mesh``, ``map_shard``, ``ingest_shard``
-raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from ..config import LioConfig
 from ..ops import preintegration as PI
 from ..ops import voxel as VX
 from ..ops.cloud import Cloud
+from ..parallel import lio_dist
+from ..parallel import multihost as MH
 from ..utils import quaternion as quat
 from ..utils.se3 import Pose
 from ..utils.tree import tree_map, tree_stack
@@ -113,18 +121,24 @@ class LioPipeline:
     ``host_predict``: the pose of a skipped sweep is integrated in numpy
     from the last consumed step's state, whose copy to the host starts
     without blocking when that step is enqueued (before the first consumed
-    step, and after ``load``, the device predict runs)."""
+    step, and after ``load``, the device predict runs). Off under a mesh.
 
-    def __init__(self, cfg: LioConfig, device=None, dtype=torch.float32, mesh=None,
-                 map_shard: bool = False, ingest_shard: bool = False,
+    ``mesh`` (a ``parallel.multihost.Mesh``): run as one rank of it, on the
+    mesh's device unless ``device`` is given (see the module docstring)."""
+
+    def __init__(self, cfg: LioConfig, device=None, dtype=torch.float32,
+                 mesh: MH.Mesh = None, map_shard: bool = False, ingest_shard: bool = False,
                  host_predict: bool = False):
-        if mesh is not None or map_shard or ingest_shard:
-            raise NotImplementedError("the distributed estimator (mesh, map_shard, "
-                                      "ingest_shard) is not ported yet")
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            lio_dist.check_caps(cfg, mesh.size)
+            device = mesh.device if device is None else device
+        self.map_shard = bool(map_shard) and mesh is not None
+        self.ingest_shard = bool(ingest_shard) and mesh is not None
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.host_predict = bool(host_predict)
+        self.host_predict = bool(host_predict) and mesh is None
         self._snap = None  # (host copies of the last consumed step's state, event)
         self.odom_state = ODO.init_state(cfg, dtype, self.device)
         self.est_state = EST.init_state(cfg, dtype, self.device)
@@ -177,8 +191,24 @@ class LioPipeline:
         now; pass the handle to :meth:`process` in place of ``(xyz, mask)``."""
         _check_ring(self.cfg, ring)
         raw = raw_start_ori(xyz, mask) if self._start_ori_tracker is not None else None
-        return PrefetchedCloud(_upload_cloud(xyz, mask, ring, self.device, self.dtype,
-                                             non_blocking=True), raw)
+        return PrefetchedCloud(self._commit_cloud(xyz, mask, ring, non_blocking=True), raw)
+
+    def _commit_cloud(self, xyz, mask, ring=None, non_blocking: bool = False) -> torch.Tensor:
+        """The packed (N, 4|5) cloud on this rank's device. With
+        ``ingest_shard`` this rank uploads only its slice of the rows, padded
+        to ceil(N / D) rows with mask 0, and the slices are gathered in rank
+        order and cut back to the N rows: the front end gets the same cloud
+        as without it."""
+        if not self.ingest_shard:
+            return _upload_cloud(xyz, mask, ring, self.device, self.dtype, non_blocking)
+        n, mesh = len(xyz), self.mesh
+        per = -(-n // mesh.size)
+        lo, hi = min(mesh.rank * per, n), min((mesh.rank + 1) * per, n)
+        part = _upload_cloud(xyz[lo:hi], mask[lo:hi], None if ring is None else ring[lo:hi],
+                             self.device, self.dtype, non_blocking)
+        if hi - lo < per:
+            part = torch.cat([part, part.new_zeros((per - (hi - lo), part.shape[1]))])
+        return MH.all_gather_rows(part, mesh)[:n]
 
     def _predict(self, packed: np.ndarray) -> Pose:
         """IMU-predicted laser pose for a skipped sweep (the reference's
@@ -271,7 +301,7 @@ class LioPipeline:
         def cloud():
             if pf is not None:
                 return pf.xyzw
-            return _upload_cloud(xyz, mask, ring_ids, self.device, self.dtype)
+            return self._commit_cloud(xyz, mask, ring_ids)
 
         deskew_mode = cfg.estimator.enable_deskew or cfg.estimator.cutoff_deskew
         if self.stage == "INITED" and deskew_mode:
@@ -290,7 +320,8 @@ class LioPipeline:
             feats = _feats_from_xyzw(cloud(), start_ori, cfg)
             corner = feats.corner_less_sharp if cfg.estimator.use_corner else None
             self.est_state, out = EST.lio_step_impl(
-                self.est_state, feats.surf_less_flat, self._samples(merged), cfg, corner)
+                self.est_state, feats.surf_less_flat, self._samples(merged), cfg, corner,
+                axis=self.mesh, map_shard=self.map_shard)
             if self.host_predict:
                 self._update_snap(out)
             out["corner_cloud"] = feats.corner_less_sharp
@@ -328,7 +359,8 @@ class LioPipeline:
         self._pending = []
         corner = odo_out["corner_cloud"] if cfg.estimator.use_corner else None
         self.est_state, out = EST.lio_step_impl(
-            self.est_state, odo_out["surf_cloud"], self._samples(merged), cfg, corner)
+            self.est_state, odo_out["surf_cloud"], self._samples(merged), cfg, corner,
+            axis=self.mesh, map_shard=self.map_shard)
         out["stage"] = self.stage
         out["corner_cloud"] = odo_out["corner_cloud"]
         out["surf_cloud"] = odo_out["surf_cloud"]
@@ -336,9 +368,13 @@ class LioPipeline:
 
     # ------------------------------------------------------------------
     def save(self, path: str):
-        """Serialize the state to an npz checkpoint (the reference's layout)."""
+        """Serialize the state to an npz checkpoint (the reference's layout);
+        under a mesh rank 0 alone writes it (every rank holds the same
+        state)."""
         from ..io import checkpoint as CKPT
 
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         meta = np.asarray([1 if self.stage == "INITED" else 0, self.frame_count,
                            self._compact_count], np.int32)
         CKPT.save_state(path, est=self.est_state, odom=self.odom_state,
@@ -346,7 +382,7 @@ class LioPipeline:
 
     def load(self, path: str):
         """Resume from a checkpoint written by this class's or the
-        reference's ``save``."""
+        reference's ``save`` (under a mesh every rank reads it)."""
         from ..io import checkpoint as CKPT
 
         loaded = CKPT.load_state(path, est=self.est_state, odom=self.odom_state)

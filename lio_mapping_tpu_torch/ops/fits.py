@@ -75,25 +75,35 @@ def sym_eig3x3(m: torch.Tensor):
     return vals, vecs
 
 
+def _sum_k(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in index order, ``x[..., 0] + x[..., 1] + ...``
+    (XLA's order for these short sums; torch's vectorised sum pairs them)."""
+    out = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        out = out + x[..., j]
+    return out
+
+
 def lstsq_k3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched least squares of (..., K, 3) @ x = (..., K) by modified
-    Gram-Schmidt QR + 3x3 back substitution."""
+    Gram-Schmidt QR + 3x3 back substitution; the K-term sums in index
+    order."""
     a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
     eps = 1e-30
-    r00 = torch.sqrt(torch.clamp_min(torch.sum(a0 * a0, -1), eps))
+    r00 = torch.sqrt(torch.clamp_min(_sum_k(a0 * a0), eps))
     q0 = a0 / r00[..., None]
-    r01 = torch.sum(q0 * a1, -1)
+    r01 = _sum_k(q0 * a1)
     v1 = a1 - r01[..., None] * q0
-    r11 = torch.sqrt(torch.clamp_min(torch.sum(v1 * v1, -1), eps))
+    r11 = torch.sqrt(torch.clamp_min(_sum_k(v1 * v1), eps))
     q1 = v1 / r11[..., None]
-    r02 = torch.sum(q0 * a2, -1)
-    r12 = torch.sum(q1 * a2, -1)
+    r02 = _sum_k(q0 * a2)
+    r12 = _sum_k(q1 * a2)
     v2 = a2 - r02[..., None] * q0 - r12[..., None] * q1
-    r22 = torch.sqrt(torch.clamp_min(torch.sum(v2 * v2, -1), eps))
+    r22 = torch.sqrt(torch.clamp_min(_sum_k(v2 * v2), eps))
     q2 = v2 / r22[..., None]
-    c0 = torch.sum(q0 * b, -1)
-    c1 = torch.sum(q1 * b, -1)
-    c2 = torch.sum(q2 * b, -1)
+    c0 = _sum_k(q0 * b)
+    c1 = _sum_k(q1 * b)
+    c2 = _sum_k(q2 * b)
     x2 = c2 / r22
     x1 = (c1 - r12 * x2) / r11
     x0 = (c0 - r01 * x1 - r02 * x2) / r00
@@ -102,13 +112,13 @@ def lstsq_k3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def plane_fit(neighbors: torch.Tensor, valid: torch.Tensor, min_plane_dis: float):
     """Fit plane w.p + d = 0, |w| = 1 through K neighbours (..., K, 3).
-    Returns (w (...,3), d (...,), ok (...,))."""
+    Returns (w (...,3), d (...,), ok (...,)); every sum in index order."""
     ones = torch.ones(neighbors.shape[:-1], dtype=neighbors.dtype, device=neighbors.device)
     x = lstsq_k3(neighbors, -ones)
-    norm = torch.linalg.norm(x, dim=-1, keepdim=True)
+    norm = torch.sqrt(_sum_k(x * x))[..., None]
     w = x / torch.clamp_min(norm, 1e-12)
     d = 1.0 / torch.clamp_min(norm[..., 0], 1e-12)
-    dist = torch.abs(torch.einsum("...ki,...i->...k", neighbors, w) + d[..., None])
+    dist = torch.abs(_sum_k(neighbors * w[..., None, :]) + d[..., None])
     planar = torch.all(dist <= min_plane_dis, dim=-1)
     ok = valid & planar & torch.isfinite(d) & (norm[..., 0] > 1e-8)
     return w, d, ok

@@ -9,6 +9,10 @@ pose_0 is the pivot.
 
 The LM ``while_loop`` is a Python loop: its exit test reads one device
 flag per iteration (one host sync per LM iteration).
+
+``psum_axis`` (a ``parallel.multihost.Mesh``): the plane rows are this
+rank's shard; their normal equations (and cost) are summed over the ranks
+with one ``all_reduce`` per evaluation, so every rank runs the same LM.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel import multihost as MH
 from ..utils import quaternion as quat
 from ..utils.tree import tree_map
 from . import factors as FA
@@ -176,10 +181,19 @@ def _scatter_shared_block(h, g_vec, h18, g18, offs):
         g_vec[o1:o1 + 6] += g18[6 * a:6 * a + 6]
 
 
-def assemble_normal_equations(groups, s: int, psum_axis: str = None):
-    """(H, g, cost, group_costs[marg, imu, plane]) from evaluated groups."""
-    if psum_axis is not None:
-        raise NotImplementedError("sharded normal equations (multi-GPU) are not ported yet")
+def _psum_packed(parts, mesh):
+    """``MH.psum`` of several tensors in one all_reduce."""
+    flat = MH.psum(torch.cat([p.reshape(-1) for p in parts]), mesh)
+    out, i = [], 0
+    for p in parts:
+        out.append(flat[i:i + p.numel()].reshape(p.shape))
+        i += p.numel()
+    return out
+
+
+def assemble_normal_equations(groups, s: int, psum_axis: MH.Mesh = None):
+    """(H, g, cost, group_costs[marg, imu, plane]) from evaluated groups;
+    with ``psum_axis`` the plane rows' terms are summed over the ranks."""
     pose_off, sb_off, ex_off, dim = _layout(s)
     pg = groups["plane"]
     dtype, dev = pg.r.dtype, pg.r.device
@@ -212,6 +226,8 @@ def assemble_normal_equations(groups, s: int, psum_axis: str = None):
         _scatter_shared_block(h, g_vec, h18, g18, (pose_off, pose_off + 6 * n_f, ex_off))
         cost_plane = cost_plane + 0.5 * torch.sum(pe.w * pe.r * pe.r)
 
+    if psum_axis is not None:
+        h, g_vec, cost_plane = _psum_packed((h, g_vec, cost_plane), psum_axis)
     h = h + h_dense
     g_vec = g_vec + g_dense
     cost = cost_dense + cost_plane
@@ -249,8 +265,6 @@ def solve_window(x0: OptStates, pres: Preintegration, g_vec, planes: PlaneFactor
     evaluation. The loop exits when the relative cost drop of an accepted
     step falls below ``ftol`` or the pose step shrinks below the
     reference's GN abort thresholds (see the reference docstring)."""
-    if psum_axis is not None:
-        raise NotImplementedError("sharded window solve (multi-GPU) is not ported yet")
     dtype, dev = x0.p.dtype, x0.p.device
     pose_off, sb_off, ex_off, dim = _layout(s)
     if imu_sqrt_infos is None:
@@ -263,10 +277,11 @@ def solve_window(x0: OptStates, pres: Preintegration, g_vec, planes: PlaneFactor
 
     def eval_all(x):
         return assemble_normal_equations(
-            _evaluate(x, pres, g_vec, planes, prior_used, ex_prior, flags, s, planes_extra), s)
+            _evaluate(x, pres, g_vec, planes, prior_used, ex_prior, flags, s, planes_extra), s,
+            psum_axis)
 
     if eval0 is not None:
-        h, gv, cost, gc = assemble_normal_equations(eval0, s)
+        h, gv, cost, gc = assemble_normal_equations(eval0, s, psum_axis)
     else:
         h, gv, cost, gc = eval_all(x0)
     x = x0
@@ -299,6 +314,8 @@ def solve_window(x0: OptStates, pres: Preintegration, g_vec, planes: PlaneFactor
     n_plane = torch.sum(planes.mask)
     if planes_extra is not None:
         n_plane = n_plane + torch.sum(planes_extra.mask)
+    if psum_axis is not None:
+        n_plane = MH.psum(n_plane, psum_axis)
     diag = SolveDiagnostics(cost_marg=gc[0], cost_imu=gc[1], cost_plane=gc[2],
                             n_plane=n_plane, iterations=torch.tensor(it, device=dev))
     return x, diag
@@ -306,13 +323,12 @@ def solve_window(x0: OptStates, pres: Preintegration, g_vec, planes: PlaneFactor
 
 def marginalize_pivot(x: OptStates, pre_01: Preintegration, g_vec, planes: PlaneFactors,
                       prior: MG.PriorState, *, s: int, cauchy_scale: float = 1.0,
-                      psum_axis: str | None = None,
+                      psum_axis: MH.Mesh = None,
                       planes_extra: PlaneFactors = None) -> MG.PriorState:
     """New prior by Schur-eliminating pose_0 + sb_0 (Estimator.cc:2152-2244):
     old prior, IMU factor (0, 1) and all plane factors at the post-solve
-    states, in the full layout [pose_0 (6) | sb_0 (9) | keep (15S+6)]."""
-    if psum_axis is not None:
-        raise NotImplementedError("sharded marginalization (multi-GPU) is not ported yet")
+    states, in the full layout [pose_0 (6) | sb_0 (9) | keep (15S+6)]; with
+    ``psum_axis`` the plane terms are summed over the ranks."""
     dtype, dev = x.p.dtype, x.p.device
     n = 15 * s + 6
     m = 15
@@ -377,6 +393,8 @@ def marginalize_pivot(x: OptStates, pre_01: Preintegration, g_vec, planes: Plane
         g18 = torch.einsum("kfi,kf->i", jcw_e, rw_e)
         _scatter_shared_block(a_pl, b_pl, h18, g18, (pose_col(0), m + 6 * (s - 1), ex_col))
 
+    if psum_axis is not None:
+        a_pl, b_pl = _psum_packed((a_pl, b_pl), psum_axis)
     a = a + a_pl
     b = b + b_pl
     a_new, b_new = MG.schur_marginalize(a, b, m)

@@ -16,8 +16,16 @@ reference's (``lio_mapping_tpu.cli``), on the CPU.
   INITED, and ``--two-phase`` reproduces it under the reference's own
   thresholds (``tests/test_cli_e2e.py:225-246``), with and without
   ``--self-filter``: the latter holds the fix of the init-sweep backfill.
-* Flag validation, the refused (not ported) flags, and no silent fall back
-  to the CPU.
+* ``run --mesh 2 --device cpu`` (2 spawned ranks over gloo, plain and with
+  ``--map-shard --ingest-shard``) ends in the same stage as the single
+  process, with ATE within 0.05 m of it (a closed loop is compared by ATE:
+  the sums over the ranks move float64 near-ties), bit-identical states on
+  both ranks and the collectives counted in ``--stats-json``;
+  ``--two-phase`` hands ``--mesh``, ``--map-shard`` and ``--ingest-shard``
+  to both phases; ``check_caps`` refuses a mesh with the reference's error.
+* A resumed run (``--skip-pairs``) copies none of the skipped pairs' clouds
+  to the device (the fourth item of ``ADVICE.md``, fixed in the port only).
+* Flag validation, and no silent fall back to the CPU.
 """
 
 import copy
@@ -305,13 +313,115 @@ def test_refused_combinations(tmp_path, capsys):
     assert "mutually exclusive" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--map-shard"], ["--ingest-shard"]])
-def test_unported_flags_exit_2(tmp_path, capsys, flag):
-    rc = TCLI.main(["run", "--log", str(tmp_path / "missing.liol"),
-                    "--out", str(tmp_path / "t.tum"), "--device", "cpu"] + flag)
-    assert rc == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP item" in err
+def _ate(est, gt):
+    from lio_mapping_tpu_torch.io.evaluation import (associate_by_time,
+                                                     evaluate_trajectory)
+
+    t_e, q_e, p_e = load_tum(est)
+    t_g, q_g, p_g = load_tum(gt)
+    ei, gi = associate_by_time(t_e, t_g, max_dt=0.02)
+    return evaluate_trajectory(q_e[ei], p_e[ei], q_g[gi], p_g[gi]).ate_rmse
+
+
+@pytest.mark.parametrize("flags", [[], ["--map-shard", "--ingest-shard"]],
+                         ids=["plain", "map-ingest-shard"])
+def test_run_mesh_on_the_cpu(seq, single, flags, capfd):
+    tag = "mesh" + "".join(f[2] for f in flags)
+    rc = _run(seq, "short", f"{tag}.tum", "--mesh", "2", "--stats-json",
+              str(seq["dir"] / f"{tag}.json"), *flags)
+    out = capfd.readouterr().out
+    assert rc == 0
+    assert "distributed estimator over 2 ranks on the CPU, backend gloo" in out
+    assert ("(map-sharded) (ingest-sharded)" in out) == bool(flags)
+    # rank 0 alone prints: one line of each
+    assert out.count("wrote 9 poses") == 1 and "stage: INITED" in out
+    assert "stage: INITED" in single["plain"]
+    ate_mesh = _ate(seq["dir"] / f"{tag}.tum", seq["gt"])
+    ate_single = _ate(seq["dir"] / "plain.tum", seq["gt"])
+    assert abs(ate_mesh - ate_single) <= 0.05, (ate_mesh, ate_single)
+    with open(seq["dir"] / f"{tag}.json") as f:
+        mesh = json.load(f)["mesh"]
+    assert mesh["ranks"] == 2 and mesh["backend"] == "gloo" and mesh["states_equal"]
+    assert [r["device"] for r in mesh["per_rank"]] == ["cpu", "cpu"]
+    assert mesh["consumed_sweeps"] > 0 and mesh["collectives_per_consumed_sweep"] > 0
+    assert mesh["host_bytes_per_consumed_sweep"] == 0  # gloo takes CPU tensors as they are
+
+
+def test_two_phase_hands_the_mesh_flags_to_both_phases(tmp_path, monkeypatch):
+    import subprocess
+
+    calls = []
+
+    def call(cmd, env=None):
+        calls.append(cmd)
+        if "--stop-at-init" in cmd:
+            with open(cmd[cmd.index("--stop-at-init") + 1], "w") as f:
+                json.dump({"inited": True, "pairs": 3, "prev_bound": None}, f)
+        return 0
+
+    monkeypatch.setattr(subprocess, "call", call)
+    rc = TCLI.main(["run", "--log", str(tmp_path / "seq.liol"), "--out", str(tmp_path / "t.tum"),
+                    "--device", "cpu", "--two-phase", "--mesh", "2", "--map-shard",
+                    "--ingest-shard"])
+    assert rc == 0 and len(calls) == 2
+    for cmd in calls:
+        assert cmd[cmd.index("--mesh") + 1] == "2"
+        assert "--map-shard" in cmd and "--ingest-shard" in cmd
+    assert "--stop-at-init" in calls[0] and "--resume" in calls[1]
+
+
+def test_check_caps_refuses_the_mesh_as_the_reference(tmp_path):
+    # indoor: surf_stack_cap 6144 is not a multiple of 5
+    args = ["run", "--log", str(tmp_path / "missing.liol"), "--out", str(tmp_path / "t.tum"),
+            "--mesh", "5"]
+    with pytest.raises(ValueError) as ref:
+        JCLI.main(args)
+    with pytest.raises(ValueError) as port:
+        TCLI.main(args + ["--device", "cpu"])
+    assert str(port.value) == str(ref.value) == \
+        "surf_stack_cap=6144 not divisible by mesh size 5"
+
+
+def test_mesh_needs_cuda_unless_told_cpu(seq, tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = TCLI.main(["run", "--log", seq["log"], "--out", str(tmp_path / "t.tum"), "--mesh", "2"])
+    assert rc != 0
+    assert "CUDA is not available" in capsys.readouterr().err
+    assert not (tmp_path / "t.tum").exists()
+
+
+def test_resumed_run_prefetches_no_skipped_pair(seq, tmp_path, monkeypatch, capsys):
+    """``--skip-pairs 5``: the host loop copies none of the five skipped
+    pairs' clouds (each prefetched cloud reaches the pipeline), and past
+    them the cadence still gates the copies."""
+    from lio_mapping_tpu_torch.models import pipeline as TPL
+
+    rec, prefetched = [], []
+    stub = _stub(TPL.LioPipeline, rec)
+
+    class Counting(stub):
+        def prefetch_cloud(self, xyz, mask, ring=None):
+            prefetched.append(np.array(xyz))
+            return super().prefetch_cloud(xyz, mask, ring)
+
+    monkeypatch.setattr(TPL, "LioPipeline", Counting)
+    assert TCLI.main(["run", "--log", seq["log"], "--profile", "indoor", "--device", "cpu",
+                      "--out", str(tmp_path / "p.tum"), "--skip-pairs", "5"]) == 0
+    assert len(rec) == N_SWEEPS - 1 - 5
+    from lio_mapping_tpu_torch import native
+
+    raw = [x[2] for x in native.SequenceLog(seq["log"]) if x[0] == "sweep"]
+
+    def sweep_of(xyz):  # the log sweep a padded cloud holds
+        return next(i for i, r in enumerate(raw) if np.array_equal(xyz[:len(r)], r)
+                    and not xyz[len(r):].any())
+
+    got = [sweep_of(x) for x in prefetched]
+    assert got and min(got) >= 5, got  # sweep i is pair i; pairs 0-4 are skipped
+    # every prefetched cloud of a pair reaches the pipeline (the log's last
+    # sweep never pairs: no IMU after it)
+    assert [sweep_of(r[1]) for r in rec if r[0]] == [i for i in got if i < N_SWEEPS - 1]
+    assert rec[0][0] and [r[0] for r in rec].count(False) >= 2
 
 
 def test_run_needs_cuda_unless_told_cpu(seq, tmp_path, monkeypatch, capsys):

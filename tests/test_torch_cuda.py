@@ -13,6 +13,9 @@ are compared tie-robustly through the chosen points' float64 distances,
 and gate decisions away from the gate's rounding band.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -302,3 +305,39 @@ def test_viz_normals_association_kernel_against_plain(dev, tmp_path):
     apart = np.abs(view.normals[both] - plain.normals[both]).max(axis=1) > 1e-4
     differing = np.sum(view.ok ^ plain.ok) + np.sum(apart)
     assert differing <= 0.005 * np.sum(view.ok | plain.ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [None, 1.0], ids=["exact", "gated"])
+def test_ring_knn_two_ranks_on_the_card(dev, tmp_path, gate):
+    """The map-sharded ring KNN with 2 ranks sharing the card (gloo, the
+    ring's send/recv staged through the host) at the estimator's per-rank
+    shapes (3072 queries against a 12288-row block, twice): the kernel runs
+    on both ranks, distances are bit-identical to ``knn`` on the
+    concatenated map (the blocks start on the kernel's 2048-row chunk
+    boundaries, so every pair is computed and pruned alike), and indices
+    are equal except among equal distances (a block searched earlier wins a
+    tie there, the lower index in the concatenated search)."""
+    from lio_mapping_tpu_torch.parallel import multihost as MH
+
+    # by path: another installed package may own the name ``tests``; the
+    # ranks unpickle ``W.ring_on_card`` through the same sys.path
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_worker as W
+
+    q, qm, db, dm = _clustered(np.random.default_rng(21), n_m=24576, n_q=6144)
+    assert MH.launch(2, W.ring_on_card, str(tmp_path), q, qm, db, dm, gate) == 0
+    ref_d, ref_i = TK.knn(*(torch.as_tensor(a, device=dev) for a in (q, qm, db, dm)), k=5,
+                          prune_beyond=gate)
+    ref_d, ref_i = ref_d.cpu().numpy(), ref_i.cpu().numpy()
+    for r in range(2):
+        with np.load(tmp_path / f"card{r}.npz") as z:
+            d, i = z["d"], z["i"]
+            assert int(z["launches"]) == 2, "one kernel search per ring step"
+            assert int(z["host_bytes"]) > 0 and str(z["backend"]) == "gloo"
+        np.testing.assert_array_equal(d, ref_d)
+        differ = i != ref_i
+        # where the indices differ, both points lie at the same distance
+        d_ring, d_ref = _d64(q, db, i), _d64(q, db, ref_i)
+        np.testing.assert_allclose(d_ring[differ], d_ref[differ], atol=_tol(q, db))
+        assert differ.mean() < 1e-3, f"{int(differ.sum())} indices differ"

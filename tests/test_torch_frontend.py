@@ -81,9 +81,9 @@ def _cloud_close(tc, jc, tol_xyz, tol_t):
     _close(tc.rel_time, jc.rel_time, tol_t)
 
 
-# the HDL-64 case runs in float64 only: in float32, XLA's and torch's
-# curvatures differ in the last bits and pick 26 of the 1024 flat points
-# differently among near-equal curvatures (same rings, same masks)
+# the HDL-64 case runs in float64 here; in float32, XLA's and torch's
+# curvatures differ in the last bits and pick some flat points differently
+# (test_process_sweep_hdl64_f32)
 RIGS = [(rig, *dt) for rig in ("vlp16", "rs32_uneven") for dt in DTYPES] + [("hdl64", *DTYPES[0])]
 
 
@@ -125,6 +125,33 @@ def test_process_sweep_matches(sweep16, sweep64, rig, dtype, tol, tol_t):
         _cloud_close(a, b, tol, tol_t)
     assert int(tf.surf_less_flat.mask.sum()) > 500
     assert int(tf.corner_sharp.mask.sum()) > 10
+
+
+# float32 HDL-64: measured 26 of the 1024 surf_flat rows differ on this sweep
+HDL64_F32_SURF_FLAT_DIFFER = 40
+
+
+def test_process_sweep_hdl64_f32(sweep64):
+    """The HDL-64 front end in float32. XLA's and torch's curvatures differ
+    in the last bits, and among near-equal curvatures the flat-point pick
+    goes another way: 26 of the 1024 ``surf_flat`` rows differ here (held
+    at <= 40). Every cloud's mask and rings are equal, and the other three
+    clouds are equal row for row."""
+    xyz, mask = sweep64
+    tcfg, jcfg = _rig("hdl64")
+    x = np.asarray(xyz, np.float32)
+    tf = TPP.process_sweep(torch.as_tensor(x), torch.as_tensor(mask), tcfg)
+    jf = JPP.process_sweep(jnp.asarray(x), jnp.asarray(mask), jcfg)
+    for name, tc, jc in zip(tf._fields, tf, jf):
+        _eq(tc.mask, jc.mask)
+        _eq(tc.ring, jc.ring)
+        differ = np.abs(tc.xyz.numpy() - np.asarray(jc.xyz)).max(axis=1) > 1e-5
+        if name == "surf_flat":
+            assert int(differ.sum()) <= HDL64_F32_SURF_FLAT_DIFFER, int(differ.sum())
+        else:
+            assert not differ.any(), name
+            _cloud_close(tc, jc, 1e-5, 1e-6)
+    assert int(tf.surf_flat.mask.sum()) == 1024
 
 
 @pytest.mark.parametrize("dtype,tol,_", DTYPES, ids=IDS)

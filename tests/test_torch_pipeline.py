@@ -250,12 +250,13 @@ def test_pipeline_runs_on_the_card_unless_told_otherwise():
     assert TPipe(cfg, device="cpu").device.type == "cpu"
 
 
-def test_unported_entry_points_raise():
-    """The device mesh is not ported yet."""
+def test_mesh_options_without_a_mesh_are_ignored():
+    """As in the reference, ``map_shard`` and ``ingest_shard`` mean nothing
+    without a mesh, and ``host_predict`` stays as asked."""
     cfg = port_cfg(small_cfg())
-    for kw in ({"mesh": object()}, {"map_shard": True}, {"ingest_shard": True}):
-        with pytest.raises(NotImplementedError, match="distributed"):
-            TPipe(cfg, device="cpu", **kw)
+    pipe = TPipe(cfg, device="cpu", map_shard=True, ingest_shard=True, host_predict=True)
+    assert pipe.mesh is None and not pipe.map_shard and not pipe.ingest_shard
+    assert pipe.host_predict
 
 
 def test_prefetched_cloud_gives_the_same_sweep():

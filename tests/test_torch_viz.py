@@ -149,14 +149,16 @@ def test_viz_normals_matches_the_reference(seq, normals_runs):
     ds = np.abs(port[:, 6] - ref[:, 6])
     err_n = {k: np.abs(v[:, 3:6] - n64).max(axis=1) for k, v in (("port", port), ("ref", ref))}
     err_s = {k: np.abs(v[:, 6] - s64) for k, v in (("port", port), ("ref", ref))}
-    # within the PLY's last digit on most rows (91% of normals, 99.7% of
-    # scores on this log); where not, the float32 fit is noise in both
-    # packages, and the port's is the nearer to the float64 fit
+    # within the PLY's last digit on all but a row in a thousand (on this
+    # log: 1849 of 1850 normals, every score), since the plane fit sums its
+    # five terms in XLA's order; the float32 fit is as near the float64 one
+    # in both packages
     tol = 1e-4 + 1e-9
     assert np.median(dn) <= tol and np.median(ds) <= tol
-    assert np.mean(dn <= tol) >= 0.85 and np.mean(ds <= tol) >= 0.95
+    assert np.mean(dn <= tol) >= 0.999 and np.mean(ds <= tol) == 1.0
     rms = lambda e: float(np.sqrt(np.mean(e ** 2)))  # noqa: E731
-    assert rms(err_n["port"]) <= rms(err_n["ref"]) and rms(err_s["port"]) <= rms(err_s["ref"])
+    for err in (err_n, err_s):
+        assert abs(rms(err["port"]) - rms(err["ref"])) <= 1e-6 * rms(err["ref"])
     # and the printed normals are unit vectors
     np.testing.assert_allclose(np.linalg.norm(port[:, 3:6], axis=1), 1.0, atol=3e-4)
 
