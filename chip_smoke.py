@@ -103,8 +103,25 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    bit-identical; the corner run also unless its corner searches launched
    the kernel never while the plain version ran for them. Printed beside
    phase 5's: the backend, the bytes copied through the host, the ATE, the
-   median step and the collectives per consumed sweep.
+   median step and the collectives per consumed sweep;
+16. the measurement tools (``lio_mapping_tpu_torch/tools``), each once as a
+   ``python -m`` subprocess on the card, five at a time, at cut depths:
+   ``bench`` (both profiles, 2 chunks of 6 sweeps, no warm-up step, no
+   legacy companion), ``bench_cli`` (40 sweeps, the small config),
+   ``profile_step``, ``profile_e2e``, ``profile_waterfall`` (3 timed calls
+   a prefix), ``ab_flags`` (the four variants over 56 sweeps),
+   ``bench_scaling`` (1 and 2 ranks sharing the card, 5 steps) and
+   ``debug_corner`` (its four modes). Fails unless every tool exits 0 and
+   names the card, ``bench``'s indoor and outdoor_64 frames/s are above 0
+   with their ``dispatch_floor_ms``, ``profile_step``'s KNN row launched
+   the kernel, ``bench_scaling`` ran 1 and 2 ranks, and each
+   ``debug_corner`` RMSE is at most twice the JAX tool's on the CPU. Their
+   times are printed, not held: five tools share the card and the cores.
 
+The counters and timers (``timed``, ``count_launches``, ...) are
+``lio_mapping_tpu_torch/utils/profiling.py``'s; those that know the
+estimator's stages and the KNN's paths (``stage_breakdown``,
+``launches_by_path``, ...) are ``lio_mapping_tpu_torch/tools/profiling.py``'s.
 The sweeps of phases 4, 8 and 13 are simulated in worker processes, and
 phases 5 and 11's ``simulate`` subprocesses run side by side, before any
 timed work of their phases.
@@ -127,8 +144,7 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from multiprocessing import get_context
 
 import numpy as np
@@ -154,7 +170,12 @@ from lio_mapping_tpu_torch.models.point_processor import process_sweep  # noqa: 
 from lio_mapping_tpu_torch.ops import knn as KNN  # noqa: E402
 from lio_mapping_tpu_torch.ops import knn_kernel  # noqa: E402
 from lio_mapping_tpu_torch.ops import voxel as VX  # noqa: E402
+from lio_mapping_tpu_torch.utils.profiling import (  # noqa: E402
+    count_launches, count_syncs, cuda_ms, device_kernel_ms, timed)
 from lio_mapping_tpu_torch.utils.se3 import Pose  # noqa: E402
+from lio_mapping_tpu_torch.tools import last_json  # noqa: E402
+from lio_mapping_tpu_torch.tools.profiling import (  # noqa: E402
+    kernel_shapes, launches_by_path, plain_searches, stage_breakdown)
 
 DEV = torch.device("cuda")
 SEED = 0
@@ -189,6 +210,12 @@ RS32_AZIMUTH = 1800
 VIZ_FRAMES = 10
 VIZ_MAX_DIFF_ROWS = 0.005  # of the accepted rows: KNN near-ties
 SIM_WORKERS = 6            # processes that simulate sweeps (the machine has 8 cores)
+# the JAX package's tools/debug_corner.py on the CPU in float64 (RMSE of each
+# mode over its INITED sweeps); phase 16 holds the port's within twice these
+DEBUG_CORNER_REF_RMSE = {"default": 0.01761344168616935, "fixmap": 0.019836333978583375,
+                         "corner": 0.016772006869240512, "both": 0.01888650206216301}
+TOOL_LANES = 5             # phase 16's tools run this many at a time
+TOOL_TIMEOUT_S = 600
 GATE = 1.0             # estimator min_match_sq_dis (m^2), the kernel's prune gate
 # H100 SXM data-sheet peaks (at 700 W): HBM rate, f32 rate outside the
 # tensor cores
@@ -345,56 +372,12 @@ def corner_plain(q, qm, db, dbm):
     same inputs (not used by the path) and the library yardstick."""
     row = {"case": "mapping_corner_5nn_plain", "Q": q.shape[0], "M": db.shape[0], "k": 5,
            "valid_q": int(qm.sum()), "valid_m": int(dbm.sum()),
-           "plain_ms": cuda_ms(lambda: KNN.knn_tiled(q, qm, db, dbm, k=5), reps=5),
+           "plain_ms": cuda_ms(lambda: KNN.knn_tiled(q, qm, db, dbm, k=5), DEV, reps=5),
            "kernel_wrapper_ms": cuda_ms(lambda: knn_kernel.knn_cuda(q, qm, db, dbm, k=5,
-                                                                    prune_beyond=GATE)),
-           "library_ms": cuda_ms(lambda: library_knn(q, qm, db, dbm, 5), reps=5)}
+                                                                    prune_beyond=GATE), DEV),
+           "library_ms": cuda_ms(lambda: library_knn(q, qm, db, dbm, 5), DEV, reps=5)}
     log("corner_plain " + json.dumps(row))
     return row
-
-
-def timed(fn, reps: int = 20):
-    """(ms, host_ms) of ``fn`` over ``reps`` back-to-back calls, after
-    warm-up: CUDA events around the loop, and the host clock until the
-    last call returned (what the host takes to enqueue one call)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_ms = 1e3 * (time.perf_counter() - t0) / reps
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, host_ms
-
-
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Mean time of ``fn`` over ``reps`` back-to-back calls (CUDA events)."""
-    return timed(fn, reps)[0]
-
-
-def device_kernel_ms(fn, reps: int = 10):
-    """Mean device time per call of each CUDA kernel ``fn`` launches
-    (torch.profiler), by kernel name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            name = evt.name.replace("void ", "").replace("(anonymous namespace)::", "")
-            name = name.split("(")[0]
-            out[name] = out.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3 / reps
-    return out
 
 
 def library_knn(q, qm, db, dbm, k):
@@ -477,12 +460,12 @@ def check_case(name, q, qm, db, dbm, k, gate):
         if err_code:
             raise RuntimeError(f"empty launch failed, cudaError {err_code}")
 
-    ms, raw_host_ms = timed(raw)
-    empty_launch_ms = cuda_ms(noop)
+    ms, raw_host_ms = timed(raw, DEV)
+    empty_launch_ms = cuda_ms(noop, DEV)
     wrapper_ms, wrapper_host_ms = timed(
-        lambda: knn_kernel.knn_cuda(q, qm, db, dbm, k=k, prune_beyond=gate))
-    plain_ms = cuda_ms(lambda: KNN.knn_tiled(q, qm, db, dbm, k=k), reps=5)
-    library_ms = cuda_ms(lambda: library_knn(q, qm, db, dbm, k), reps=5)
+        lambda: knn_kernel.knn_cuda(q, qm, db, dbm, k=k, prune_beyond=gate), DEV)
+    plain_ms = cuda_ms(lambda: KNN.knn_tiled(q, qm, db, dbm, k=k), DEV, reps=5)
+    library_ms = cuda_ms(lambda: library_knn(q, qm, db, dbm, k), DEV, reps=5)
 
     # bound: pairs this data needs (valid queries x valid points, in the
     # chunks the gate keeps), and each input byte read / output written once
@@ -556,165 +539,6 @@ def simulate_sequence(pool, traj, n_sweeps: int, rings=None):
 def feed(pipe, item):
     xyz, mask, dts, acc, gyr, a0, w0, _ = item
     return pipe.process(xyz, mask, pipe.make_samples(dts, acc, gyr, a0, w0))
-
-
-def count_launches(pipe, item):
-    """Kernel launches, device busy time and the kernels that took most of
-    it, for one sweep (torch.profiler; its overhead inflates ``wall_ms``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = feed(pipe, item)
-        torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
-    runtime = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
-    n_launch = 0
-    by_kernel = {}
-    for evt in prof.events():
-        if evt.name in runtime:
-            n_launch += 1
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            rec = by_kernel.setdefault(evt.name[:80], [0, 0.0])
-            rec[0] += 1
-            rec[1] += evt.time_range.elapsed_us() / 1e3
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
-    return out, {"runtime_launches": n_launch,
-                 "device_kernels": sum(c for c, _ in by_kernel.values()),
-                 "device_busy_ms": sum(ms for _, ms in by_kernel.values()), "wall_ms": wall_ms,
-                 "top_device_kernels": [[name, c, ms] for name, (c, ms) in top]}
-
-
-def count_syncs(pipe, item):
-    """Host syncs of one sweep: warnings of the CUDA sync-debug mode."""
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = feed(pipe, item)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    return out, sum("synchroniz" in str(w.message) for w in caught)
-
-
-def stage_breakdown(pipe, item):
-    """Wall time of one sweep by stage: each listed function timed inclusive
-    (synchronised before and after), with its call count. Nested stages
-    overlap: ``_calculate_laser_odom`` holds its own ``_associate_frame``
-    and ``knn`` calls, ``solve_window`` its ``_evaluate`` calls."""
-    from lio_mapping_tpu_torch.models import estimator as EST
-    from lio_mapping_tpu_torch.models import pipeline as PL
-
-    targets = [(PL, "process_sweep"), (EST, "predict_and_push"), (EST, "local_map"),
-               (EST, "_associate_frame"), (EST, "_calculate_laser_odom"), (EST.KNN, "knn"),
-               (EST.SV, "_evaluate"), (EST.SV, "solve_window"), (EST.SV, "marginalize_pivot")]
-    stats = {}
-
-    def timed(name, fn):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            rec = stats.setdefault(name, {"calls": 0, "ms": 0.0})
-            rec["calls"] += 1
-            rec["ms"] += 1e3 * (time.perf_counter() - t0)
-            return out
-        return run
-
-    originals = [(mod, name, getattr(mod, name)) for mod, name in targets]
-    for mod, name, fn in originals:
-        setattr(mod, name, timed(name, fn))
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = feed(pipe, item)
-        torch.cuda.synchronize()
-        stats["sweep"] = {"calls": 1, "ms": 1e3 * (time.perf_counter() - t0)}
-    finally:
-        for mod, name, fn in originals:
-            setattr(mod, name, fn)
-    return out, stats
-
-
-@contextlib.contextmanager
-def launches_by_path(counts, targets, calls=None):
-    """Attribute the KNN kernel's launches to the path that made them: each
-    (module, function) in ``targets`` is wrapped for the block, and the
-    launches made inside it are added to ``counts[name]`` (and its calls to
-    ``calls[name]`` when given)."""
-    originals = [(name, mod, attr, getattr(mod, attr)) for name, (mod, attr) in targets.items()]
-
-    def wrap(name, fn):
-        def run(*args, **kwargs):
-            before = knn_kernel.LAUNCHES
-            if calls is not None:
-                calls[name] = calls.get(name, 0) + 1
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                counts[name] = counts.get(name, 0) + knn_kernel.LAUNCHES - before
-        return run
-
-    for name, mod, attr, fn in originals:
-        setattr(mod, attr, wrap(name, fn))
-    try:
-        yield counts
-    finally:
-        for _, mod, attr, fn in originals:
-            setattr(mod, attr, fn)
-
-
-@contextlib.contextmanager
-def plain_searches(counts, targets):
-    """Count the plain version's searches (``ops/knn.knn_tiled``) made
-    inside each (module, function) of ``targets``, into ``counts[name]``."""
-    active = []
-    orig_tiled = KNN.knn_tiled
-    originals = [(name, mod, attr, getattr(mod, attr)) for name, (mod, attr) in targets.items()]
-
-    def tiled(*args, **kwargs):
-        for name in active:
-            counts[name] = counts.get(name, 0) + 1
-        return orig_tiled(*args, **kwargs)
-
-    def wrap(name, fn):
-        def run(*args, **kwargs):
-            active.append(name)
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                active.pop()
-        return run
-
-    KNN.knn_tiled = tiled
-    for name, mod, attr, fn in originals:
-        setattr(mod, attr, wrap(name, fn))
-    try:
-        yield counts
-    finally:
-        KNN.knn_tiled = orig_tiled
-        for _, mod, attr, fn in originals:
-            setattr(mod, attr, fn)
-
-
-@contextlib.contextmanager
-def kernel_shapes(shapes):
-    """Count the kernel's searches by (queries, map rows, k) in ``shapes``."""
-    orig = knn_kernel.knn_cuda
-
-    def run(queries, q_mask, db, db_mask, k=5, prune_beyond=None):
-        key = f"{queries.shape[0]}x{db.shape[0]}x{k}"
-        shapes[key] = shapes.get(key, 0) + 1
-        return orig(queries, q_mask, db, db_mask, k=k, prune_beyond=prune_beyond)
-
-    knn_kernel.knn_cuda = run
-    try:
-        yield shapes
-    finally:
-        knn_kernel.knn_cuda = orig
 
 
 def drive(pipe, seq, paths, plain=None):
@@ -806,13 +630,14 @@ def main_path(seq, traj):
     # launches and host syncs per sweep, past the measured run
     counts = []
     for j, item in enumerate(seq[N_SWEEPS:N_SWEEPS + N_EXTRA]):
+        sweep = lambda: feed(pipe, item)  # noqa: E731
         if j < 2:
-            out, c = count_launches(pipe, item)
+            out, c = count_launches(sweep, DEV)
         elif j < 4:
-            out, n_sync = count_syncs(pipe, item)
+            out, n_sync = count_syncs(sweep, DEV)
             c = {"host_syncs": n_sync}
         else:
-            out, c = stage_breakdown(pipe, item)
+            out, c = stage_breakdown(sweep, DEV)
         c["consumed"] = "body_pose" in out
         if "solver_iterations" in out:
             c["lm"] = int(out["solver_iterations"])
@@ -898,13 +723,14 @@ def outdoor64_path(pool):
         else:
             feed(pipe, item)
             continue
+        sweep = lambda: feed(pipe, item)  # noqa: E731
         if kind == "launches":
-            out, c = count_launches(pipe, item)
+            out, c = count_launches(sweep, DEV)
         elif kind == "syncs":
-            out, n_sync = count_syncs(pipe, item)
+            out, n_sync = count_syncs(sweep, DEV)
             c = {"host_syncs": n_sync}
         else:
-            out, c = stage_breakdown(pipe, item)
+            out, c = stage_breakdown(sweep, DEV)
         c["consumed"] = "body_pose" in out
         counts.append(c)
     log("outdoor64_per_sweep_counts " + json.dumps(counts))
@@ -1474,7 +1300,7 @@ def mesh_paths(workdir, single):
 
     rows = []
     for tag, wall_s, corner in runs:
-        ev = cli_call(workdir, "evaluate", "--est", f"traj_{tag}.tum", "--gt", "gt.tum")
+        ev = cli_inprocess("evaluate", "--est", p(f"traj_{tag}.tum"), "--gt", p("gt.tum"))
         with open(p(f"stats_{tag}.json")) as f:
             stats = json.load(f)
         mesh = stats["mesh"]
@@ -1526,6 +1352,110 @@ def mesh_paths(workdir, single):
         by_path[tag] = sum(row["knn_launches"])
         rows.append(row)
     return rows, by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the measurement tools
+# ---------------------------------------------------------------------------
+
+
+def tool_runs(workdir):
+    """Each tool once, at the cut depths of PERF.md section 4, longest first;
+    files they write go to ``workdir``."""
+    return [("bench", "--sweeps", "6", "--reps", "2", "--warmup", "0", "--skip-legacy"),
+            ("ab_flags", "--sweeps", "56", "--out", os.path.join(workdir, "ab_flags.json")),
+            ("bench_cli", "--sweeps", "40", "--profile-config", "small", "--out",
+             os.path.join(workdir, "cli_throughput.json")),
+            ("debug_corner",),
+            ("bench_scaling", "--virtual", "2", "--iters", "5"),
+            ("profile_waterfall", "--reps", "3"),
+            ("profile_step",),
+            ("profile_e2e",)]
+
+
+def run_tool(workdir, name, *args):
+    """``python -m lio_mapping_tpu_torch.tools.<name> <args>`` in ``workdir``
+    (its own process group, killed whole past ``TOOL_TIMEOUT_S``); returns
+    (name, exit code, stdout, stderr, seconds)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(x for x in (ROOT, env.get("PYTHONPATH")) if x)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", f"lio_mapping_tpu_torch.tools.{name}", *args],
+                            cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=TOOL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        out, err = "", f"timed out after {TOOL_TIMEOUT_S} s"
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+    return name, proc.returncode, out, err, time.perf_counter() - t0
+
+
+def tools_path(workdir, card):
+    """Phase 16: the eight tools as subprocesses, ``TOOL_LANES`` at a time;
+    each must exit 0 and name the card (``card``: the nvidia-smi line), with
+    the checks of each tool's numbers. Returns (row, kernel launches by
+    tool)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(TOOL_LANES) as pool:
+        done = list(pool.map(lambda run: run_tool(workdir, *run), tool_runs(workdir)))
+    wall_s = time.perf_counter() - t0
+    res, secs = {}, {}
+    for name, rc, out, err, s in done:
+        for line in out.splitlines():
+            log(f"  tool {name}: {line}")
+        if rc != 0:
+            raise AssertionError(f"tool {name} exited {rc}:\n{err[-4000:]}")
+        res[name], secs[name] = last_json(out), s
+    b, ps, ab = res["bench"], res["profile_step"], res["ab_flags"]
+    dc, bs, wf = res["debug_corner"], res["bench_scaling"], res["profile_waterfall"]
+    devices = {"bench": [b["device"]], "bench_cli": [res["bench_cli"]["device"]],
+               "profile_step": [ps["aggregate"]["device"]],
+               "profile_e2e": [res["profile_e2e"]["device"]], "profile_waterfall": [wf["device"]],
+               "ab_flags": [r["device"] for r in ab["results"]], "bench_scaling": [bs["device"]],
+               "debug_corner": [dc["device"]]}
+    knn_row = ps["stages"][0]
+    row = {"wall_s": wall_s, "seconds": secs,
+           "bench": {k: b.get(k) for k in (
+               "value", "median_fps", "chunk_fps", "per_sweep_ms", "dispatch_floor_ms",
+               "single_process_fps", "outdoor64_fps", "outdoor64_median_fps",
+               "outdoor64_chunk_fps", "outdoor64_per_sweep_ms", "outdoor64_dispatch_floor_ms")},
+           "bench_cli": {k: res["bench_cli"].get(k) for k in (
+               "value", "fps_total", "per_step_ms_median", "ate_rmse_m", "stage")},
+           "profile_step": [{k: r.get(k) for k in ("stage", "ms", "gflop", "gbytes_per_s",
+                                                   "knn_launches")} for r in ps["stages"]],
+           "profile_e2e": res["profile_e2e"], "profile_waterfall": wf["stages"],
+           "ab_flags": [{k: r.get(k) for k in ("variant", "ate_rmse_m", "n_inited_poses",
+                                               "fps")} for r in ab["results"]],
+           "bench_scaling": bs["steps"], "debug_corner": dc["rmse"],
+           "debug_corner_limit": {m: 2 * v for m, v in DEBUG_CORNER_REF_RMSE.items()}}
+    log("tools " + json.dumps(row))
+    for name, devs in devices.items():
+        if any(d != card for d in devs):
+            raise AssertionError(f"tool {name} ran on {devs}, not on {card}")
+    if not (b["value"] > 0 and b.get("outdoor64_fps", 0) > 0):
+        raise AssertionError(f"bench: indoor {b['value']} f/s, outdoor_64 "
+                             f"{b.get('outdoor64_fps')} f/s")
+    if b.get("dispatch_floor_ms") is None or b.get("outdoor64_dispatch_floor_ms") is None:
+        raise AssertionError("bench recorded no dispatch_floor_ms")
+    if not knn_row["stage"].startswith("knn ") or knn_row["knn_launches"] < 1:
+        raise AssertionError(f"profile_step's KNN row did not launch the kernel: {knn_row}")
+    for mode, ref in DEBUG_CORNER_REF_RMSE.items():
+        if not dc["rmse"][mode] <= 2 * ref:
+            raise AssertionError(f"debug_corner {mode}: RMSE {dc['rmse'][mode]} m > 2 x {ref}")
+    if [s["n_devices"] for s in bs["steps"]] != [1, 2]:
+        raise AssertionError(f"bench_scaling ran {bs['steps']}")
+    by_path = {"tool_bench": b["knn_launches"], "tool_bench_outdoor64": b["outdoor64_knn_launches"],
+               "tool_profile_step": ps["aggregate"]["knn_launches"],
+               "tool_profile_e2e": res["profile_e2e"]["knn_launches"],
+               "tool_profile_waterfall": wf["knn_launches"],
+               "tool_ab_flags": sum(r["knn_launches"] for r in ab["results"]),
+               "tool_bench_scaling": sum(s["knn_launches"] for s in bs["steps"]),
+               "tool_debug_corner": dc["knn_launches"]}
+    return row, by_path
 
 
 def main():
@@ -1588,11 +1518,14 @@ def main():
         _, rs32_paths = rs32_path(workdir, pool)
         _, viz_launches = viz_path(workdir)
         _, mesh_by_path = mesh_paths(workdir, single)
+        t_tools = time.perf_counter()
+        _, tool_paths = tools_path(workdir, smi.splitlines()[0].strip())
+        log(f"phase 16 took {time.perf_counter() - t_tools:.1f} s")
 
     # the device time of each of the search's kernels, under torch.profiler
     # (after every timed run: the profiler may slow later host work)
     for (row, raw) in checked:
-        by_kernel = device_kernel_ms(raw)
+        by_kernel = device_kernel_ms(raw, DEV)
         log("knn_device " + json.dumps({"case": row["case"], "device_ms_by_kernel": by_kernel,
                                         "device_ms": sum(by_kernel.values())}))
 
@@ -1613,7 +1546,7 @@ def main():
                  for tag in ("mesh2", "mesh2_block")}
     by_path = {**lio_paths, **loam_paths, **o64_paths, **corner_by_path, **four_d_paths,
                "cli_outdoor": outdoor["knn_launches"], "cli_bag": bag["knn_launches"],
-               **rs32_paths, "viz_normals": viz_launches, **mesh_by_path}
+               **rs32_paths, "viz_normals": viz_launches, **mesh_by_path, **tool_paths}
     kernels = [{
         "name": "knn", "route": "cuda", "source": "lio_mapping_tpu_torch/csrc/knn.cu",
         "replaces": "lio_mapping_tpu/ops/pallas/knn_kernel.py:167",

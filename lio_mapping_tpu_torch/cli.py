@@ -218,13 +218,6 @@ def _no_cuda(device) -> bool:
     return False
 
 
-def _sync(device):
-    import torch
-
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _state_digest(pipe) -> str:
     """sha256 of every tensor of the pipeline's estimator state (its bytes
     on the host): equal digests mean bit-identical states."""
@@ -290,7 +283,7 @@ def _replay(args, mesh=None):
     from .io.evaluation import load_tum, save_tum
     from .models import pipeline as PL
     from .ops import knn_kernel
-    from .utils.timing import StageTimer, device_trace
+    from .utils.timing import StageTimer, device_trace, dispatch_floor_ms
 
     cfg = _profile(args.profile, args.config)
     device = mesh.device if mesh is not None else torch.device(args.device)
@@ -528,22 +521,8 @@ def _replay(args, mesh=None):
     probe_cost = 0.0
     if args.stats_json and writer:
         probe_t0 = time.perf_counter()
-        # dispatch floor, before the final flush's readbacks: the mean time
-        # of one small program enqueued back to back (on the card, the
-        # launch floor)
-        probe_in = torch.ones((64, 15, 15), dtype=torch.float32, device=device)
-
-        def probe(x):
-            return torch.einsum("kij,kjl,kml->im", x, x, x)
-
-        for _ in range(3):
-            probe(probe_in)
-        _sync(device)
-        p0 = time.perf_counter()
-        for _ in range(30):
-            probe(probe_in)
-        _sync(device)
-        disp_ms = (time.perf_counter() - p0) / 30 * 1e3
+        # dispatch floor, before the final flush's readbacks
+        disp_ms = dispatch_floor_ms(device)
         probe_cost = time.perf_counter() - probe_t0
 
     flush()

@@ -400,6 +400,13 @@ def local_map(st: EstimatorState, cfg: LioConfig):
     return rel, maps
 
 
+# Profiling hook (tools/profile_waterfall.py): one of "window", "map",
+# "assoc", "gates", "solve" ends the step right after that stage and returns
+# (st, debug dict), as the reference's hook does; each call then runs only
+# the step's prefix. None in production.
+_TRUNCATE_STAGE = None
+
+
 def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSamples,
                   cfg: LioConfig, corner_cloud: Cloud = None, axis: MH.Mesh = None,
                   map_shard: bool = False) -> Tuple[EstimatorState, dict]:
@@ -412,7 +419,13 @@ def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSampl
     dtype, dev = state.ps.dtype, state.ps.device
 
     st = predict_and_push(state, surf_cloud, samples, cfg, corner_cloud)
+    if _TRUNCATE_STAGE == "window":
+        return st, {}
     rel, maps = local_map(st, cfg)
+    if _TRUNCATE_STAGE == "map":
+        return st, {"m": maps[0], "maps": maps,
+                    "stacks": (st.surf_xyz, st.surf_mask, st.corner_xyz, st.corner_mask),
+                    "rel_q": rel.q, "rel_t": rel.t}
 
     # association sharding (distributed step only): this rank's rows
     def shard_rows(arr, mask):
@@ -473,6 +486,8 @@ def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSampl
     feat_ok.append(ok_n)
     planes = SV.PlaneFactors(point=torch.stack(feat_pts), coeff=torch.stack(feat_coeff),
                              mask=torch.stack(feat_ok))
+    if _TRUNCATE_STAGE == "assoc":
+        return st, {"c": planes.coeff}
 
     # gates + window solve
     x0 = SV.OptStates(
@@ -507,6 +522,8 @@ def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSampl
     # not converged: fix extrinsic + drop the prior (Estimator.cc:1957-1981)
     prior_in = st.prior._replace(valid=st.prior.valid & convergence_flag)
     opt_ex = st.extrinsic_enabled & convergence_flag
+    if _TRUNCATE_STAGE == "gates":
+        return st, {"f": convergence_flag}
 
     j_m, r_m, w_m = groups0["marg"]
     eval0 = dict(groups0)
@@ -517,6 +534,8 @@ def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSampl
         s=s_opt, max_iterations=e.max_solver_iterations, cauchy_scale=e.cauchy_loss_scale,
         opt_extrinsic=opt_ex, use_marg=True, eval0=eval0, imu_sqrt_infos=imu_sqrt_infos,
         planes_extra=planes_extra, psum_axis=axis, ftol=e.solver_ftol)
+    if _TRUNCATE_STAGE == "solve":
+        return st, {"q": x_opt.q}
 
     # yaw-gauge fix (DoubleToVector, Estimator.cc:2479-2568)
     r_pivot_old = quat.to_matrix(st.qs[pivot])

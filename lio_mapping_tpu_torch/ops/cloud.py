@@ -38,6 +38,19 @@ class Cloud(NamedTuple):
             mask=torch.zeros((capacity,), dtype=torch.bool, device=device),
         )
 
+    @staticmethod
+    def from_xyz(xyz: torch.Tensor, rel_time=None, ring=None, mask=None) -> "Cloud":
+        """A cloud of ``xyz`` (..., N, 3): rel_time 0, ring -1 and every
+        point valid unless given."""
+        lead = xyz.shape[:-1]
+        if rel_time is None:
+            rel_time = torch.zeros(lead, dtype=xyz.dtype, device=xyz.device)
+        if ring is None:
+            ring = torch.full(lead, -1, dtype=torch.int32, device=xyz.device)
+        if mask is None:
+            mask = torch.ones(lead, dtype=torch.bool, device=xyz.device)
+        return Cloud(xyz, rel_time, ring, mask)
+
     def transform(self, pose) -> "Cloud":
         return self._replace(xyz=pose.apply(self.xyz))
 
@@ -52,6 +65,14 @@ class RingCloud(NamedTuple):
     rel_time: torch.Tensor
     mask: torch.Tensor
     count: torch.Tensor
+
+    @property
+    def n_rings(self) -> int:
+        return self.xyz.shape[-3]
+
+    @property
+    def points_per_ring(self) -> int:
+        return self.xyz.shape[-2]
 
 
 def concat_clouds(a: Cloud, b: Cloud) -> Cloud:

@@ -13,8 +13,10 @@ This follows the reference's tiled path (the CPU oracle), which clamps at
 0; its Pallas kernel does not clamp.
 
 ``knn`` sends a CUDA tensor with ``k <= 8`` (and not ``force_tiled``) to the
-hand-written kernel (``ops/knn_kernel.py``); everything else runs the plain
-tiled version below, which is also what the kernel is held against.
+hand-written float32 kernel (``ops/knn_kernel.py``; a float64 search is
+cast to float32 for it, as the reference's Pallas kernel casts); everything
+else runs the plain tiled version below, which is also what the kernel is
+held against.
 """
 
 from __future__ import annotations
@@ -70,10 +72,18 @@ def knn(queries, q_mask, db, db_mask, k: int = 5, tile: int = 2048,
     ``prune_beyond``: squared-distance match gate enabling the kernel's
     AABB block pruning (exact for every row whose true k-th neighbour lies
     within the gate; beyond-gate rows report a k-th distance beyond it).
+
+    On the card the search runs the float32 kernel whatever the dtype, as
+    the reference's Pallas kernel casts its inputs to float32: other dtypes
+    are cast for the search and the distances cast back.
     """
     if queries.is_cuda and k <= knn_kernel.MAX_K and not force_tiled:
-        return knn_kernel.knn_cuda(queries, q_mask, db, db_mask, k=k,
-                                   prune_beyond=prune_beyond)
+        if queries.dtype == torch.float32 and db.dtype == torch.float32:
+            return knn_kernel.knn_cuda(queries, q_mask, db, db_mask, k=k,
+                                       prune_beyond=prune_beyond)
+        d, i = knn_kernel.knn_cuda(queries.float().contiguous(), q_mask, db.float().contiguous(),
+                                   db_mask, k=k, prune_beyond=prune_beyond)
+        return d.to(queries.dtype), i
     return knn_tiled(queries, q_mask, db, db_mask, k=k, tile=tile)
 
 

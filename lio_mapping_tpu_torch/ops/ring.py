@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from .cloud import RingCloud, scatter_rows
+from .cloud import Cloud, RingCloud, scatter_rows
 
 
 def project_to_rings(
@@ -87,3 +87,16 @@ def project_to_rings(
         torch.clamp(counts, max=max_points_per_ring).to(torch.int32),
     )
     return rc, start_ori
+
+
+def ring_cloud_to_flat(rc: RingCloud) -> Cloud:
+    """Flatten the (R, P) grid to a flat Cloud; a valid point keeps its ring
+    index, an empty slot gets -1."""
+    r, p = rc.mask.shape
+    ring_ids = torch.arange(r, dtype=torch.int32, device=rc.mask.device)[:, None].expand(r, p)
+    return Cloud(
+        xyz=rc.xyz.reshape(r * p, 3),
+        rel_time=rc.rel_time.reshape(r * p),
+        ring=torch.where(rc.mask, ring_ids, -1).reshape(r * p),
+        mask=rc.mask.reshape(r * p),
+    )

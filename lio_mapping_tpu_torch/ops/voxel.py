@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from .cloud import Cloud
+
 _BITS = 10
 _HALF = 1 << (_BITS - 1)  # 512
 _SPAN = 1 << _BITS
@@ -129,3 +131,10 @@ def voxel_downsample(
                                        None if aux is None else aux[None], wide=wide)
     return ox[0], om[0], None if oa is None else oa[0]
 
+
+def voxel_downsample_cloud(c: Cloud, leaf: float, capacity: int) -> Cloud:
+    """Voxel-downsample a Cloud; rel_time averaged per voxel, ring dropped (-1)."""
+    out_xyz, out_mask, out_rt = voxel_downsample(c.xyz, c.mask, leaf, capacity, aux=c.rel_time)
+    return Cloud(xyz=out_xyz, rel_time=out_rt,
+                 ring=torch.full((capacity,), -1, dtype=torch.int32, device=c.xyz.device),
+                 mask=out_mask)

@@ -117,6 +117,11 @@ def initialize(coordinator_address: str, num_processes: int, process_id: int,
     return global_mesh(dev_type)
 
 
+def is_multiprocess() -> bool:
+    """True inside a joined process group of more than one rank."""
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
 def global_mesh(device="cuda") -> Mesh:
     """The 1-D mesh over every rank of the joined process group, on
     ``device``'s type: rank r on card r mod the card count, or the CPU."""

@@ -6,6 +6,8 @@ with ``sync=True`` a stage given a CUDA tensor or device waits for the card
 at its exit (``torch.cuda.synchronize``), so device work is charged to the
 stage that launched it. ``device_trace`` records a ``torch.profiler`` trace
 (CPU and CUDA activities) and writes it to a directory as a Chrome trace.
+``dispatch_floor_ms`` times one small program enqueued back to back (the
+``dispatch_floor_ms`` of ``cli run --stats-json`` and ``tools/bench``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from typing import Dict, List, Optional
 import torch
 
 
-def _sync(on):
+def synchronize(on):
+    """Wait for the card when ``on`` (a tensor or a device) is on one."""
     dev = on.device if torch.is_tensor(on) else torch.device(on)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -47,7 +50,7 @@ class StageTimer:
             yield
         finally:
             if self.sync and sync_on is not None:
-                _sync(sync_on)
+                synchronize(sync_on)
             self.records.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
 
     def tic(self) -> float:
@@ -94,3 +97,22 @@ def device_trace(trace_dir: Optional[str]):
     with profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+def dispatch_floor_ms(device) -> float:
+    """Mean wall time of one small program (a 64x15x15 einsum chain) enqueued
+    back to back 30 times on ``device``, after 3 warm-up calls, synchronised
+    before and after: on the card, the floor of eager dispatch."""
+    x = torch.ones((64, 15, 15), dtype=torch.float32, device=device)
+
+    def probe():
+        return torch.einsum("kij,kjl,kml->im", x, x, x)
+
+    for _ in range(3):
+        probe()
+    synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(30):
+        probe()
+    synchronize(device)
+    return (time.perf_counter() - t0) / 30 * 1e3

@@ -84,6 +84,40 @@ def test_kernel_matches_plain(dev, k, gate):
 
 
 @pytest.mark.cuda
+def test_cost_counter_and_count_launches_see_one_search(dev):
+    """``utils/profiling`` on the card: ``count_launches`` counts the
+    search's kernel launches (>= 1), and the cost counter, which does not see
+    a ctypes kernel, counts only the outputs' allocations (0 flops)."""
+    from lio_mapping_tpu_torch.utils.profiling import CostCounter, count_launches
+
+    q, qm, db, dm = _clustered(np.random.default_rng(3), n_m=9000, n_q=700)
+    args = [torch.as_tensor(x).to(dev) for x in (q, qm, db, dm)]
+    TK.knn(*args, k=5, prune_beyond=1.0)  # built and loaded
+    before = TKK.LAUNCHES
+    with CostCounter() as cost:
+        (d, i), counts = count_launches(lambda: TK.knn(*args, k=5, prune_beyond=1.0), dev)
+    assert TKK.LAUNCHES == before + 1
+    assert counts["runtime_launches"] >= 1 and counts["device_kernels"] >= 1
+    assert cost.flops == 0 and set(cost.by_op) <= {"aten.empty", "aten.slice", "aten.view"}
+    assert d.shape == i.shape == (700, 5)
+
+
+@pytest.mark.cuda
+def test_float64_search_runs_the_kernel_in_float32(dev):
+    """A float64 search on the card (the float64 pipeline, ``debug_corner``)
+    goes through the float32 kernel, as the reference's Pallas kernel casts
+    to float32: the float32 search's neighbours, distances cast back."""
+    q, qm, db, dm = _clustered(np.random.default_rng(4), n_m=9000, n_q=700)
+    f32 = [torch.as_tensor(x).to(dev) for x in (q, qm, db, dm)]
+    f64 = [f32[0].double(), f32[1], f32[2].double(), f32[3]]
+    before = TKK.LAUNCHES
+    d64, i64 = TK.knn(*f64, k=5, prune_beyond=1.0)
+    assert TKK.LAUNCHES == before + 1 and d64.dtype == torch.float64
+    d32, i32 = TK.knn(*f32, k=5, prune_beyond=1.0)
+    assert torch.equal(i64, i32) and torch.equal(d64, d32.double())
+
+
+@pytest.mark.cuda
 def test_kernel_contract_ties_and_short_maps(dev):
     """Clamped at 0, the lowest index wins ties, +inf and index 0 past the
     valid points, +inf for masked queries: the plain version's contract."""

@@ -221,3 +221,46 @@ def test_crop_box_filter_matches(rng, negative):
     near = np.any(np.minimum(np.abs(p - lo), np.abs(p - hi)) < 1e-4, axis=1)
     np.testing.assert_array_equal(got[~near], want[~near])
     assert 100 < int((got != mask).sum()) < 3900  # the box cuts the cloud
+
+
+def test_cloud_from_xyz_matches(rng):
+    """``Cloud.from_xyz``: the reference's defaults (rel_time 0, ring -1,
+    every point valid) and given channels passed through, in a batch too."""
+    xyz = rng.normal(size=(2, 7, 3))
+    _cloud_close(TC.Cloud.from_xyz(torch.as_tensor(xyz)), JC.Cloud.from_xyz(jnp.asarray(xyz)),
+                 0.0, 0.0)
+    rt, ring = rng.random(7), rng.integers(0, 16, 7).astype(np.int32)
+    mask = rng.random(7) > 0.5
+    _cloud_close(TC.Cloud.from_xyz(torch.as_tensor(xyz[0]), torch.as_tensor(rt),
+                                   torch.as_tensor(ring), torch.as_tensor(mask)),
+                 JC.Cloud.from_xyz(jnp.asarray(xyz[0]), jnp.asarray(rt), jnp.asarray(ring),
+                                   jnp.asarray(mask)), 0.0, 0.0)
+
+
+def test_ring_cloud_to_flat_matches(sweep16):
+    """The ring grid's shape properties and its flat cloud (rings of valid
+    points, -1 in empty slots) equal the reference's."""
+    xyz, mask = sweep16
+    s = TCfg.indoor().sensor
+    kw = dict(n_rings=s.n_rings, lower_bound_deg=s.lower_bound_deg,
+              upper_bound_deg=s.upper_bound_deg, max_points_per_ring=s.max_points_per_ring,
+              scan_period=s.scan_period)
+    trc, _ = TR.project_to_rings(torch.as_tensor(xyz), torch.as_tensor(mask), **kw)
+    jrc, _ = JR.project_to_rings(jnp.asarray(xyz), jnp.asarray(mask), **kw)
+    assert (trc.n_rings, trc.points_per_ring) == (jrc.n_rings, jrc.points_per_ring) \
+        == (s.n_rings, s.max_points_per_ring)
+    _cloud_close(TR.ring_cloud_to_flat(trc), JR.ring_cloud_to_flat(jrc), 1e-12, 1e-12)
+
+
+@pytest.mark.parametrize("dtype,tol,_", DTYPES, ids=IDS)
+def test_voxel_downsample_cloud_matches(rng, dtype, tol, _):
+    """Centroids and mean relative times per voxel, ring dropped to -1."""
+    n = 3000
+    xyz, rt = np.asarray(rng.normal(size=(n, 3)) * 3.0, dtype), np.asarray(rng.random(n), dtype)
+    ring, mask = rng.integers(0, 16, n).astype(np.int32), rng.random(n) > 0.1
+    tc = TC.Cloud(torch.as_tensor(xyz), torch.as_tensor(rt), torch.as_tensor(ring),
+                  torch.as_tensor(mask))
+    jc = JC.Cloud(jnp.asarray(xyz), jnp.asarray(rt), jnp.asarray(ring), jnp.asarray(mask))
+    for cap in (4096, 500):
+        _cloud_close(TV.voxel_downsample_cloud(tc, 0.4, cap),
+                     JV.voxel_downsample_cloud(jc, 0.4, cap), tol, tol)

@@ -45,6 +45,7 @@ from lio_mapping_tpu.ops import preintegration as JPI
 from lio_mapping_tpu.ops import solver as JSV
 from lio_mapping_tpu.parallel import distributed as JDIST
 from lio_mapping_tpu.parallel import map_sharded as JMS
+from lio_mapping_tpu.parallel import multihost as JMH
 from lio_mapping_tpu.parallel import sharded_ba as JSB
 from lio_mapping_tpu.utils import quaternion as jquat
 from lio_mapping_tpu_torch.models import estimator as TE
@@ -147,6 +148,13 @@ def test_multihost_psum_replicate_and_counters(ranks):
         assert n == 3 and nbytes == 2 * 8 + 3 * 8 + 1 and host == 0
     # lio_dist.make_mesh: the joined group's mesh, of every rank
     assert [list(res["mh/make_mesh"]) for res in ranks.result()] == [[D, 0], [D, 1]]
+
+
+def test_is_multiprocess(ranks):
+    """True in each rank of the 2-rank group; in this process, which joined
+    none, False, as the reference's ``is_multiprocess`` is in one process."""
+    assert [bool(res["mh/is_multiprocess"]) for res in ranks.result()] == [True] * D
+    assert MH.is_multiprocess() is JMH.is_multiprocess() is False
 
 
 def test_backend_rule():

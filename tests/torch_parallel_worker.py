@@ -248,6 +248,7 @@ def check_multihost(mesh, out):
     out["mh/counters"] = np.asarray([mesh.collectives, mesh.bytes, mesh.host_bytes])
     out["mh/make_mesh"] = np.asarray([lio_dist.make_mesh(device="cpu").size,
                                       lio_dist.make_mesh(mesh.size, "cpu").rank])
+    out["mh/is_multiprocess"] = np.asarray(MH.is_multiprocess())
 
 
 def run_checks(rank, world, address, case_dir, cfgs, problem):
