@@ -27,14 +27,17 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    After phase 7, each of the search's kernels under ``torch.profiler``;
 4. the main path: ``LioPipeline(LioConfig.indoor(), device="cuda")`` in
    float32 over a simulated 90-sweep indoor sequence (the ``cli simulate``
-   defaults), from a cold start through INITED. Fails unless it ends
-   INITED with ATE RMSE <= 0.35 m and the KNN kernel ran on the INITED
-   sweeps. Then a few more sweeps (a consumed and a skipped one each)
-   under ``torch.profiler``, under the CUDA sync-debug mode and under
-   per-stage timers count kernel launches, host syncs and stage times.
-   Then the same 90 sweeps once more with the estimator's searches on the
-   plain version (``make_knn5`` patched here to ``force_tiled``): its
-   INITED sweep and ATE are printed beside the kernel's, not held;
+   defaults), from a cold start through INITED, its INITED sweeps replayed
+   as CUDA graphs (the default on the card, ``models/step_graph.py``).
+   Fails unless it ends INITED with ATE RMSE <= 0.35 m, the KNN kernel ran
+   on the INITED sweeps and graphs replayed. Then a few more sweeps (a
+   consumed and a skipped one each) under ``torch.profiler``, under the
+   CUDA sync-debug mode and under per-stage timers (those on the eager
+   step: ``graphs=False`` for that sweep) count launch calls, host syncs
+   and stage times. Phase 17 follows it. Then the same 90 sweeps once
+   more with the estimator's searches on the plain version (``make_knn5``
+   patched here to ``force_tiled``): its INITED sweep and ATE are printed
+   beside the kernel's, not held;
 5. the CLI in lio mode, each step a subprocess of ``python -m
    lio_mapping_tpu_torch.cli`` in a temporary directory: ``simulate`` 90
    sweeps, ``run --profile indoor`` with ``--map-out`` and
@@ -116,7 +119,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    with their ``dispatch_floor_ms``, ``profile_step``'s KNN row launched
    the kernel, ``bench_scaling`` ran 1 and 2 ranks, and each
    ``debug_corner`` RMSE is at most twice the JAX tool's on the CPU. Their
-   times are printed, not held: five tools share the card and the cores.
+   times are printed, not held: five tools share the card and the cores;
+17. phase 4's 90 sweeps on a ``graphs=False`` pipeline, run right after
+   phase 4: fails unless its poses (bit for bit), INITED sweep, ATE and
+   final-state sha256 equal phase 4's graphed run. The same extra sweeps
+   are counted, and both paths' launch calls, host syncs, wall and
+   device-busy ms per consumed sweep and the graphs' memory are printed.
 
 The counters and timers (``timed``, ``count_launches``, ...) are
 ``lio_mapping_tpu_torch/utils/profiling.py``'s; those that know the
@@ -613,12 +621,73 @@ def summarize(recs, poses, seq, traj, by_path, run_s):
     }
 
 
+def eager_stages(pipe, sweep):
+    """``stage_breakdown`` of one sweep: on the eager step (a graphed
+    pipeline runs that sweep with ``graphs=False``; its state goes back
+    into the graphs' buffers at the next graphed sweep)."""
+    graphs, pipe.graphs = pipe.graphs, False
+    try:
+        return stage_breakdown(sweep, DEV)
+    finally:
+        pipe.graphs = graphs
+
+
+def captures(pipe) -> int:
+    g = pipe._step_graphs
+    return 0 if g is None else g.stats["captures"]
+
+
+def extra_counts(pipe, seq, stages: bool = True):
+    """Launches (and device busy time), host syncs and (``stages``) stage
+    times of the sweeps after the measured run: two sweeps each;
+    ``captured``: CUDA graphs captured during the sweep."""
+    counts = []
+    for j, item in enumerate(seq[N_SWEEPS:N_SWEEPS + (N_EXTRA if stages else 4)]):
+        sweep = lambda: feed(pipe, item)  # noqa: E731
+        c0 = captures(pipe)
+        if j < 2:
+            out, c = count_launches(sweep, DEV)
+        elif j < 4:
+            out, n_sync = count_syncs(sweep, DEV)
+            c = {"host_syncs": n_sync}
+        else:
+            out, c = eager_stages(pipe, sweep)
+        c["consumed"] = "body_pose" in out
+        c["captured"] = captures(pipe) - c0
+        if "solver_iterations" in out:
+            c["lm"] = int(out["solver_iterations"])
+            c["gn"] = int(out["newest_rounds"])
+        counts.append(c)
+    return counts
+
+
+def timed_extras(pipe, seq):
+    """Wall ms of each sweep after the measured run (synchronised, no
+    profiler yet in this process), with its kind and captures."""
+    rows = []
+    for item in seq[N_SWEEPS:N_SWEEPS + N_EXTRA]:
+        c0 = captures(pipe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = feed(pipe, item)
+        torch.cuda.synchronize()
+        rows.append({"ms": 1e3 * (time.perf_counter() - t0), "consumed": "body_pose" in out,
+                     "captured": captures(pipe) - c0})
+    return rows
+
+
 def main_path(seq, traj):
+    """Phase 4 on the default (graphed) pipeline; returns (summary, launches
+    by path, the pipeline, its poses)."""
     pipe = LioPipeline(LioConfig.indoor(), device=DEV, dtype=torch.float32)
+    if not pipe.graphs:
+        raise AssertionError("the pipeline on the card does not default to CUDA graphs")
     recs, poses, by_path, _, _, run_s = drive(
-        pipe, seq[:N_SWEEPS], {"lio_estimator": (EST, "lio_step_impl"),
+        pipe, seq[:N_SWEEPS], {"lio_estimator": (EST, "step_program"),
                                "lio_odometry": (ODO, "odometry_step")})
     summary = summarize(recs, poses, seq[:N_SWEEPS], traj, by_path, run_s)
+    summary["state_sha256"] = cli._state_digest(pipe)
+    summary["graphs"] = {**pipe._step_graphs.stats, **pipe._step_graphs.memory_bytes()}
     log("main_path " + json.dumps(summary))
     if summary["stage"] != "INITED":
         raise AssertionError(f"the pipeline ended {summary['stage']}, not INITED")
@@ -626,25 +695,76 @@ def main_path(seq, traj):
         raise AssertionError(f"ATE RMSE {summary['ate_rmse_m']:.4f} m > {ATE_LIMIT} m")
     if summary["knn_launches_inited"] <= 0:
         raise AssertionError("the CUDA KNN kernel was not launched on the INITED sweeps")
+    if summary["graphs"]["replays"] <= 0:
+        raise AssertionError("the INITED sweeps replayed no CUDA graph")
+    return summary, by_path, pipe, poses
 
-    # launches and host syncs per sweep, past the measured run
-    counts = []
-    for j, item in enumerate(seq[N_SWEEPS:N_SWEEPS + N_EXTRA]):
-        sweep = lambda: feed(pipe, item)  # noqa: E731
-        if j < 2:
-            out, c = count_launches(sweep, DEV)
-        elif j < 4:
-            out, n_sync = count_syncs(sweep, DEV)
-            c = {"host_syncs": n_sync}
-        else:
-            out, c = stage_breakdown(sweep, DEV)
-        c["consumed"] = "body_pose" in out
-        if "solver_iterations" in out:
-            c["lm"] = int(out["solver_iterations"])
-            c["gn"] = int(out["newest_rounds"])
-        counts.append(c)
-    log("per_sweep_counts " + json.dumps(counts))
-    return summary, by_path
+
+def _same_poses(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(p.q, r.q) and torch.equal(p.t, r.t)
+                                    for p, r in zip(a, b))
+
+
+def eager_replay(seq, traj, workdir, graphed, g_summary, g_poses):
+    """Phase 17: phase 4's sequence on a ``graphs=False`` pipeline. Fails
+    unless its poses, INITED sweep, ATE and final state (sha256) equal
+    phase 4's graphed run. Then both pipelines take the extra sweeps from
+    their states after the 90 (a checkpoint each): the graphed one once to
+    capture what they need, then each timed with no profiler yet in this
+    process, then counted (launches, syncs, stage times); printed per
+    consumed sweep beside the graphs' memory."""
+    pipe = LioPipeline(LioConfig.indoor(), device=DEV, dtype=torch.float32, graphs=False)
+    recs, poses, by_path, _, _, run_s = drive(
+        pipe, seq[:N_SWEEPS], {"lio_estimator_eager": (EST, "step_program"),
+                               "lio_odometry_eager": (ODO, "odometry_step")})
+    summary = summarize(recs, poses, seq[:N_SWEEPS], traj, by_path, run_s)
+    summary["state_sha256"] = cli._state_digest(pipe)
+    same = {"poses": _same_poses(poses, g_poses),
+            "inited_at_sweep": summary["inited_at_sweep"] == g_summary["inited_at_sweep"],
+            "ate_rmse_m": summary["ate_rmse_m"] == g_summary["ate_rmse_m"],
+            "state_sha256": summary["state_sha256"] == g_summary["state_sha256"]}
+    log("eager_replay " + json.dumps({**summary, "equal_to_graphed": same}))
+    if not all(same.values()):
+        raise AssertionError(f"the eager step differs from the graphed one: {same}")
+
+    paths = {"graphed": graphed, "eager": pipe}
+    ckpt = {name: os.path.join(workdir, f"phase17_{name}.npz") for name in paths}
+    for name, p in paths.items():
+        p.save(ckpt[name])
+    warm = timed_extras(graphed, seq)  # captures what the extra sweeps need
+    log("phase17_warm_graphed " + json.dumps(warm))
+    timed, counts = {}, {}
+    for name, p in paths.items():
+        p.load(ckpt[name])
+        timed[name] = timed_extras(p, seq)
+    for name, p in paths.items():
+        p.load(ckpt[name])
+        # stage times exist for the eager step only
+        counts[name] = extra_counts(p, seq, stages=name == "eager")
+        log(f"per_sweep_counts_{name} " + json.dumps(counts[name]))
+
+    def per_consumed(name):
+        cs = counts[name]
+        launch = next(c for c in cs if "runtime_launches" in c and c["consumed"])
+        sync = next(c for c in cs if "host_syncs" in c and c["consumed"])
+        walls = [r["ms"] for r in timed[name] if r["consumed"]]
+        return {"launch_calls": launch["runtime_launches"],
+                "graph_launches": launch["graph_launches"],
+                "device_kernels": launch["device_kernels"],
+                "device_busy_ms": launch["device_busy_ms"], "host_syncs": sync["host_syncs"],
+                "wall_ms": walls, "wall_ms_mean": float(np.mean(walls)),
+                "skipped_wall_ms": [r["ms"] for r in timed[name] if not r["consumed"]],
+                "captured": sum(r["captured"] for r in timed[name])
+                + launch["captured"] + sync["captured"],
+                "lm": launch.get("lm"), "gn": launch.get("gn"),
+                "steady_run_ms_mean": (g_summary if name == "graphed" else summary)[
+                    "steady_consumed_ms_mean"]}
+
+    row = {"graphed": {**per_consumed("graphed"),
+                       "graphs_memory_bytes": graphed._step_graphs.memory_bytes()},
+           "eager": per_consumed("eager")}
+    log("per_consumed_sweep_paths " + json.dumps(row))
+    return row, by_path
 
 
 def plain_closed_loop(seq, traj, kernel_summary):
@@ -660,9 +780,9 @@ def plain_closed_loop(seq, traj, kernel_summary):
     try:
         pipe = LioPipeline(LioConfig.indoor(), device=DEV, dtype=torch.float32)
         recs, poses, by_path, plain, _, run_s = drive(
-            pipe, seq[:N_SWEEPS], {"lio_estimator_plain_knn": (EST, "lio_step_impl"),
+            pipe, seq[:N_SWEEPS], {"lio_estimator_plain_knn": (EST, "step_program"),
                                    "lio_odometry_plain_knn": (ODO, "odometry_step")},
-            plain={"lio_estimator_plain_knn": (EST, "lio_step_impl")})
+            plain={"lio_estimator_plain_knn": (EST, "step_program")})
     finally:
         EST.make_knn5 = orig
     summary = summarize(recs, poses, seq[:N_SWEEPS], traj, by_path, run_s)
@@ -693,7 +813,7 @@ def outdoor64_path(pool):
     log(f"simulated {len(seq)} HDL-64 sweeps in {time.perf_counter() - t0:.1f} s")
     pipe = LioPipeline(cfg, device=DEV, dtype=torch.float32)
     recs, poses, by_path, _, shapes, run_s = drive(
-        pipe, seq[:N_O64], {"lio_estimator_outdoor64": (EST, "lio_step_impl"),
+        pipe, seq[:N_O64], {"lio_estimator_outdoor64": (EST, "step_program"),
                             "lio_odometry_outdoor64": (ODO, "odometry_step")})
     summary = summarize(recs, poses, seq[:N_O64], traj, by_path, run_s)
     e = cfg.estimator
@@ -730,7 +850,7 @@ def outdoor64_path(pool):
             out, n_sync = count_syncs(sweep, DEV)
             c = {"host_syncs": n_sync}
         else:
-            out, c = stage_breakdown(sweep, DEV)
+            out, c = eager_stages(pipe, sweep)
         c["consumed"] = "body_pose" in out
         counts.append(c)
     log("outdoor64_per_sweep_counts " + json.dumps(counts))
@@ -924,7 +1044,7 @@ def cli_4d(workdir):
     knn_kernel.LAUNCHES = 0
     t0 = time.perf_counter()
     with launches_by_path(by_path, {"map_builder": (MB, "map_builder_step"),
-                                    "lio_estimator_4d": (EST, "lio_step_impl"),
+                                    "lio_estimator_4d": (EST, "step_program"),
                                     "lio_odometry_4d": (ODO, "odometry_step")}, calls):
         out = cli_inprocess("run", "--log", p("seq.liol"), "--profile", "indoor",
                             "--out", p("traj_4d_lio.tum"), "--enable-4d", "--out-4d",
@@ -1139,7 +1259,7 @@ def rs32_path(workdir, pool):
     by_path, stages = {}, []
     knn_kernel.LAUNCHES = 0
     t0 = time.perf_counter()
-    with launches_by_path(by_path, {"rs32_estimator": (EST, "lio_step_impl"),
+    with launches_by_path(by_path, {"rs32_estimator": (EST, "step_program"),
                                     "rs32_odometry": (ODO, "odometry_step")}), \
             stages_by_pair(stages):
         out = cli_inprocess("run", "--log", p("rs32.liol"), "--config", p("rs32.yaml"),
@@ -1492,7 +1612,9 @@ def main():
         t0 = time.perf_counter()
         seq = simulate_sequence(pool, traj, N_SWEEPS + N_EXTRA)
         log(f"simulated {len(seq)} sweeps in {time.perf_counter() - t0:.1f} s")
-        summary, lio_paths = main_path(seq, traj)
+        summary, lio_paths, graphed, g_poses = main_path(seq, traj)
+        _, eager_paths = eager_replay(seq, traj, workdir, graphed, summary, g_poses)
+        del graphed
         plain_loop = plain_closed_loop(seq, traj, summary)
 
         # phases 5 and 11's logs, simulated side by side
@@ -1544,7 +1666,7 @@ def main():
     o64_row = next(r for r in rows if r["case"] == "estimator64_5nn_gated")
     mesh_rows = {tag: next(r for r in rows if r["case"] == f"estimator_{tag}_5nn_gated")
                  for tag in ("mesh2", "mesh2_block")}
-    by_path = {**lio_paths, **loam_paths, **o64_paths, **corner_by_path, **four_d_paths,
+    by_path = {**lio_paths, **eager_paths, **loam_paths, **o64_paths, **corner_by_path, **four_d_paths,
                "cli_outdoor": outdoor["knn_launches"], "cli_bag": bag["knn_launches"],
                **rs32_paths, "viz_normals": viz_launches, **mesh_by_path, **tool_paths}
     kernels = [{

@@ -173,7 +173,7 @@ def optimize_to_map(corner_db, corner_db_mask, surf_db, surf_db_mask,
         jw = jac * wrow[:, None]
         ata = jw.T @ jac
         atb = jw.T @ (-d_all)
-        x = torch.linalg.solve(ata + 1e-9 * eye6, atb)
+        x = GN.solve(ata + 1e-9 * eye6, atb)
         if it == 0:
             g = GN.degeneracy_projection(ata, mcfg.degeneracy_eigen_th)
             proj, degen = g.proj, g.is_degenerate

@@ -155,7 +155,7 @@ def odometry_step(state: OdometryState, feats: SweepFeatures, cfg: LioConfig,
             jw = jac * w[:, None]
             ata = jw.T @ jac
             atb = jw.T @ rhs
-            x = torch.linalg.solve(ata + 1e-12 * eye6, atb)
+            x = GN.solve(ata + 1e-12 * eye6, atb)
             if it == 0:
                 g = GN.degeneracy_projection(ata, oc.degeneracy_eigen_th)
                 proj, degen = g.proj, g.is_degenerate

@@ -90,6 +90,15 @@ def scatter_rows(n_out: int, slot: torch.Tensor, values: torch.Tensor, fill) -> 
     return out[:n_out]
 
 
+def count_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 (n,) counts of each value of ``ids`` (int64, all in [0, n)): the
+    result of ``torch.bincount(ids, minlength=n)``, without its reads of the
+    largest and smallest id (two host syncs on a CUDA tensor). Integer
+    sums, so the result is exact in any order."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def crop_box_filter(xyz: torch.Tensor, mask: torch.Tensor, box_min, box_max, rotation=None,
                     negative: bool = True) -> torch.Tensor:
     """Axis-aligned crop-box self-filter; returns the updated mask

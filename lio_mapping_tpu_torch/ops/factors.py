@@ -189,7 +189,9 @@ def prior_factor(p, q, pos_prior, rot_prior):
     q = quat.normalize(q)
     dq = quat.qmul(quat.conjugate(rot_prior), q)
     res = torch.cat([p - pos_prior, 2.0 * dq[1:4]])
-    sqrt_info = torch.diag(torch.tensor([1000.0] * 3 + [0.1] * 3, dtype=dtype, device=dev))
+    # made by fills, not uploaded from the host (the step runs in CUDA graphs)
+    sqrt_info = torch.diag(torch.cat([torch.full((3,), 1000.0, dtype=dtype, device=dev),
+                                      torch.full((3,), 0.1, dtype=dtype, device=dev)]))
     jac = torch.eye(6, dtype=dtype, device=dev)
     jac[3:6, 3:6] = quat.left_matrix(dq)[:3, :3]
     return sqrt_info @ res, sqrt_info @ jac

@@ -165,15 +165,13 @@ def _extract_labels(xyz: torch.Tensor, rc_mask: torch.Tensor, count: torch.Tenso
 
     labels = torch.zeros((r, p + 1), dtype=torch.int32, device=dev)
     curv_b = curv[:, None, :]
-    neg_inf = torch.tensor(-math.inf, dtype=curv.dtype, device=dev)
-    pos_inf = torch.tensor(math.inf, dtype=curv.dtype, device=dev)
 
     # corner picks: descending curvature, curv > th
     n_picked = torch.zeros((r, ns), dtype=torch.int32, device=dev)
     corner_ok = (curv > cfg.surf_curv_th)[:, None, :]
     for _ in range(cfg.max_corner_less_sharp):
         cand = in_region & ~picked[:, None, :] & corner_ok
-        vmax, i = torch.max(torch.where(cand, curv_b, neg_inf), dim=-1)
+        vmax, i = torch.max(torch.where(cand, curv_b, -math.inf), dim=-1)
         ok = vmax > -math.inf
         new_label = torch.where(n_picked < cfg.max_corner_sharp,
                                 _CORNER_SHARP, _CORNER_LESS_SHARP).to(torch.int32)
@@ -186,7 +184,7 @@ def _extract_labels(xyz: torch.Tensor, rc_mask: torch.Tensor, count: torch.Tenso
     flat_label = torch.full((r, ns), _SURFACE_FLAT, dtype=torch.int32, device=dev)
     for _ in range(cfg.max_surf_flat):
         cand = in_region & ~picked[:, None, :] & flat_ok
-        vmin, i = torch.min(torch.where(cand, curv_b, pos_inf), dim=-1)
+        vmin, i = torch.min(torch.where(cand, curv_b, math.inf), dim=-1)
         ok = vmin < math.inf
         labels.scatter_(1, torch.where(ok, i, p), flat_label)
         picked = picked | _nms_masks_batched(i, ok, adj_big, ncr)

@@ -21,10 +21,25 @@ class GNState(NamedTuple):
 def degeneracy_projection(ata: torch.Tensor, eigen_th: float) -> GNState:
     """The degenerate-direction projector from A^T A (iteration 0 only)."""
     vals, vecs = torch.linalg.eigh(ata)  # ascending
+    return projection_from_eigh(vals, vecs, eigen_th)
+
+
+def projection_from_eigh(vals: torch.Tensor, vecs: torch.Tensor, eigen_th: float) -> GNState:
+    """:func:`degeneracy_projection` from A^T A's eigendecomposition (the
+    part after ``eigh``, which the graphed step runs between two graphs)."""
     keep_small = torch.cumprod((vals < eigen_th).to(torch.int32), dim=0) == 1
-    mask = (~keep_small).to(ata.dtype)
+    mask = (~keep_small).to(vecs.dtype)
     proj = (vecs * mask[None, :]) @ vecs.T
     return GNState(proj=proj, is_degenerate=torch.any(keep_small))
+
+
+def solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.solve(a, b)`` without its error check, which reads the
+    factorization's status back to the host (one sync per call on the
+    card): the same factorization and solve, bit for bit. A singular
+    system gives non-finite entries instead of an error, as
+    ``jnp.linalg.solve`` does in the reference."""
+    return torch.linalg.solve_ex(a, b, check_errors=False)[0]
 
 
 def solve_normal_equations(jac, rhs, w, state: GNState | None, eigen_th: float):
@@ -33,7 +48,7 @@ def solve_normal_equations(jac, rhs, w, state: GNState | None, eigen_th: float):
     jw = jac * w[:, None]
     ata = jw.T @ jac
     atb = jw.T @ rhs
-    x = torch.linalg.solve(ata + 1e-12 * torch.eye(6, dtype=ata.dtype, device=ata.device), atb)
+    x = solve(ata + 1e-12 * torch.eye(6, dtype=ata.dtype, device=ata.device), atb)
     if state is None:
         state = degeneracy_projection(ata, eigen_th)
     x = torch.where(state.is_degenerate, state.proj @ x, x)

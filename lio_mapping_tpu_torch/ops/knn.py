@@ -44,6 +44,7 @@ def knn_tiled(queries, q_mask, db, db_mask, k: int = 5, tile: int = 2048):
     idx (Q, k) int32)."""
     q = queries.shape[0]
     m = db.shape[0]
+    knn_kernel.note_search("plain", q, m, k)
     dtype = queries.dtype
     dev = queries.device
     q_sq = torch.sum(queries * queries, dim=-1, keepdim=True)

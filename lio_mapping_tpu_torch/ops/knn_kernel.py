@@ -14,11 +14,15 @@ stream; it allocates the outputs and the scratch with ``torch.empty`` and
 runs no other PyTorch op on them. It raises on anything the kernel does
 not take, CPU tensors included: ``ops/knn.py::knn`` sends those to the
 plain version. ``prune_flags`` is the plain version of the kernel's tile
-flags. ``LAUNCHES`` counts searches.
+flags. ``LAUNCHES`` counts the kernel's launches; a launch made while a
+CUDA graph is captured is counted at each replay of the graph instead
+(``recording``, ``replayed``), and ``LISTENERS`` are told of each search
+with the frames that made it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -26,6 +30,7 @@ import math
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 
@@ -40,8 +45,15 @@ BATCH = 4      # sub-ranges are whole batches of this many points
 BOUNDS_BYTES = 48  # sizeof(Bounds)
 MAX_K = 8
 
-#: searches since import (``chip_smoke.py`` resets and reads it)
+#: launches of the kernel since import, those replayed inside CUDA graphs
+#: included (``chip_smoke.py`` resets and reads it)
 LAUNCHES = 0
+#: callables told of every search as ``(kind, shape, stack)``: kind
+#: "kernel" (a launch of the kernel) or "plain" (``ops/knn.knn_tiled``),
+#: shape "QxMxk", stack the code objects of the Python frames that made it
+#: (``tools/profiling.py`` attributes searches with them)
+LISTENERS = []
+_recording = None  # the events of the CUDA graph being captured
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "knn.cu"
@@ -162,7 +174,6 @@ def _check(name, t, shape, dtype):
 def _launch(queries, q_mask, db, db_mask, k, prune_beyond):
     """Checks the inputs, allocates, and enqueues one search: returns
     (out_d, out_i, scratch), the tile flags at the start of ``scratch``."""
-    global LAUNCHES
     q_n, m_n = queries.shape[0], db.shape[0]
     if not 1 <= k <= MAX_K:
         raise ValueError(f"kernel takes 1 <= k <= {MAX_K}, got {k}")
@@ -189,8 +200,62 @@ def _launch(queries, q_mask, db, db_mask, k, prune_beyond):
         gate, out_d.data_ptr(), out_i.data_ptr(), scratch.data_ptr(), n_scratch, stream)
     if err != 0:
         raise RuntimeError(f"CUDA KNN kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    note_search("kernel", q_n, m_n, k)
     return out_d, out_i, scratch
+
+
+def _stack(stop=None):
+    """The code objects of the calling frames (outermost last), up to the
+    frame running ``stop``."""
+    codes = []
+    f = sys._getframe(2)
+    while f is not None and f.f_code is not stop:
+        codes.append(f.f_code)
+        f = f.f_back
+    return tuple(codes)
+
+
+def note_search(kind: str, q_n: int, m_n: int, k: int):
+    """Count one search (kind "kernel": a launch of the kernel; "plain":
+    a search of the plain version) and tell the listeners. While a CUDA
+    graph is captured the search does not run: it is recorded with the
+    frames inside the capture, and counted at each replay (:func:`replayed`)."""
+    shape = f"{q_n}x{m_n}x{k}"
+    if _recording is not None:
+        events, stop = _recording
+        events.append((kind, shape, _stack(stop)))
+        return
+    _count(kind, shape, _stack() if LISTENERS else ())
+
+
+def _count(kind, shape, stack):
+    global LAUNCHES
+    if kind == "kernel":
+        LAUNCHES += 1
+    for listener in tuple(LISTENERS):
+        listener(kind, shape, stack)
+
+
+@contextlib.contextmanager
+def recording(stop=None):
+    """Record the searches made inside the block (a CUDA graph's capture)
+    instead of counting them; ``stop``: the code object of the capturing
+    frame, where the recorded stacks end. Yields the list of events."""
+    global _recording
+    prev, events = _recording, []
+    _recording = (events, stop)
+    try:
+        yield events
+    finally:
+        _recording = prev
+
+
+def replayed(events):
+    """Count the searches of a replayed graph, each with its frames inside
+    the graph below the frames that replay it."""
+    outer = _stack() if LISTENERS else ()
+    for kind, shape, inner in events:
+        _count(kind, shape, inner + outer)
 
 
 def search(queries, q_mask, db, db_mask, k: int = 5, prune_beyond: float | None = None):

@@ -40,7 +40,7 @@ class PriorState(NamedTuple):
             x0_q=quat.identity(dtype, device).repeat(s, 1), x0_p=torch.zeros((s, 3), **z),
             x0_sb=torch.zeros((s, 9), **z), x0_ex_q=quat.identity(dtype, device),
             x0_ex_p=torch.zeros((3,), **z),
-            valid=torch.tensor(False, device=device))
+            valid=torch.zeros((), dtype=torch.bool, device=device))
 
 
 def local_diff_pose(p, q, p0, q0):
@@ -87,13 +87,18 @@ def _eigh(a: torch.Tensor):
     return torch.linalg.eigh(a)
 
 
-def _equilibrated_eigh(a: torch.Tensor):
-    """eigh of D^-1 A D^-1 (diag -> 1). Returns (vals, vecs, d) with
-    A = D (V diag(vals) V^T) D."""
+def equilibrate(a: torch.Tensor):
+    """(D^-1 A D^-1 (diag -> 1), d) of the symmetrised A."""
     a = 0.5 * (a + a.T)
     d = torch.sqrt(torch.clamp_min(torch.diagonal(a), 1e-12))
     a_s = a / d[:, None] / d[None, :]
-    a_s = 0.5 * (a_s + a_s.T)
+    return 0.5 * (a_s + a_s.T), d
+
+
+def _equilibrated_eigh(a: torch.Tensor):
+    """eigh of D^-1 A D^-1 (diag -> 1). Returns (vals, vecs, d) with
+    A = D (V diag(vals) V^T) D."""
+    a_s, d = equilibrate(a)
     vals, vecs = _eigh(a_s)
     return vals, vecs, d
 
@@ -102,7 +107,13 @@ def psd_pinv(a: torch.Tensor, eps: float = EPS):
     """Eigenvalue-thresholded pseudo-inverse (MarginalizationFactor.cc:280-282)
     on the equilibrated matrix with a dtype-relative cut."""
     vals, vecs, d = _equilibrated_eigh(a)
-    cut = torch.clamp_min(torch.max(vals) * _rel_tol(a.dtype), eps)
+    return pinv_from_eigh(vals, vecs, d, eps)
+
+
+def pinv_from_eigh(vals, vecs, d, eps: float = EPS):
+    """:func:`psd_pinv` from the equilibrated matrix's eigendecomposition
+    (the graphed step runs the ``eigh`` itself between two graphs)."""
+    cut = torch.clamp_min(torch.max(vals) * _rel_tol(vecs.dtype), eps)
     keep = vals > cut
     inv_vals = torch.where(keep, 1.0 / torch.where(keep, vals, torch.ones_like(vals)),
                            torch.zeros_like(vals))
@@ -112,7 +123,12 @@ def psd_pinv(a: torch.Tensor, eps: float = EPS):
 
 def schur_marginalize(a: torch.Tensor, b: torch.Tensor, m: int):
     """Marginalize the leading m states: (A', b') over the trailing block."""
-    amm_inv = psd_pinv(a[:m, :m])
+    return schur_with(a, b, m, psd_pinv(a[:m, :m]))
+
+
+def schur_with(a: torch.Tensor, b: torch.Tensor, m: int, amm_inv: torch.Tensor):
+    """:func:`schur_marginalize` given the pseudo-inverse of A's leading
+    m x m block."""
     arm = a[m:, :m]
     return a[m:, m:] - arm @ amm_inv @ a[:m, m:], b[m:] - arm @ amm_inv @ b[:m]
 
@@ -124,6 +140,12 @@ def factorize_prior(a: torch.Tensor, b: torch.Tensor):
     J^T r = b are not."""
     a = 0.5 * (a + a.T)
     vals, vecs = _eigh(a)
+    return factor_from_eigh(vals, vecs, b)
+
+
+def factor_from_eigh(vals, vecs, b):
+    """:func:`factorize_prior` from the eigendecomposition of the
+    symmetrised A."""
     keep = vals > EPS
     zero = torch.zeros_like(vals)
     s = torch.where(keep, vals, zero)

@@ -113,9 +113,15 @@ class PrefixStates(NamedTuple):
 def noise_matrix(acc_n: float, gyr_n: float, acc_w: float, gyr_w: float,
                  dtype=torch.float32, device=None) -> torch.Tensor:
     """18x18 continuous noise diag (IntegrationBase.h:94-100)."""
-    d = [acc_n**2] * 3 + [gyr_n**2] * 3 + [acc_n**2] * 3 + [gyr_n**2] * 3 \
-        + [acc_w**2] * 3 + [gyr_w**2] * 3
-    return torch.diag(torch.tensor(d, dtype=dtype, device=device))
+    return _diag_of_triples([acc_n**2, gyr_n**2, acc_n**2, gyr_n**2, acc_w**2, gyr_w**2],
+                            dtype, device)
+
+
+def _diag_of_triples(values, dtype, device) -> torch.Tensor:
+    """diag of each value repeated three times, made on ``device`` by fills
+    (no host-to-device copy)."""
+    return torch.diag(torch.cat([torch.full((3,), v, dtype=dtype, device=device)
+                                 for v in values]))
 
 
 def _scan(x: torch.Tensor, combine, reverse: bool = False) -> torch.Tensor:
@@ -295,8 +301,7 @@ def integrate_sequential(samples: ImuSamples, ba, bg, noise18) -> Preintegration
 def noise_matrix_euler(acc_n: float, gyr_n: float, acc_w: float, gyr_w: float,
                        dtype=torch.float32, device=None) -> torch.Tensor:
     """12x12 noise diag of the Euler scheme (IntegrationBase.h:260-265)."""
-    d = [acc_n**2] * 3 + [gyr_n**2] * 3 + [acc_w**2] * 3 + [gyr_w**2] * 3
-    return torch.diag(torch.tensor(d, dtype=dtype, device=device))
+    return _diag_of_triples([acc_n**2, gyr_n**2, acc_w**2, gyr_w**2], dtype, device)
 
 
 def euler_step(state: Preintegration, dt, acc1, gyr1, noise12) -> Preintegration:
@@ -356,13 +361,18 @@ def state_at_offset(prefixes: PrefixStates, t_offset, q0, p0, v0, g_vec):
     """World state at the first sample time >= ``t_offset`` into the
     interval (reference Estimator.cc:628-640 stamped-transform lookup)."""
     dtype, dev = p0.dtype, p0.device
-    t_offset = torch.as_tensor(t_offset, dtype=dtype, device=dev)
-    k = torch.argmax((prefixes.cum_dt >= t_offset).to(torch.uint8))
+    t_offset = (t_offset.to(dev, dtype) if torch.is_tensor(t_offset)
+                else torch.full((), t_offset, dtype=dtype, device=dev))
+    # index_select, not [k]: a 0-dim index tensor is read to the host
+    k = torch.argmax((prefixes.cum_dt >= t_offset).to(torch.uint8)).reshape(1)
     at_start = t_offset <= 0
-    t = torch.where(at_start, torch.zeros((), dtype=dtype, device=dev), prefixes.cum_dt[k])
-    dq = torch.where(at_start, quat.identity(dtype, dev), prefixes.delta_q[k])
-    dp = torch.where(at_start, torch.zeros(3, dtype=dtype, device=dev), prefixes.delta_p[k])
-    dv = torch.where(at_start, torch.zeros(3, dtype=dtype, device=dev), prefixes.delta_v[k])
+    t = torch.where(at_start, torch.zeros((), dtype=dtype, device=dev),
+                    prefixes.cum_dt.index_select(0, k)[0])
+    dq = torch.where(at_start, quat.identity(dtype, dev), prefixes.delta_q.index_select(0, k)[0])
+    dp = torch.where(at_start, torch.zeros(3, dtype=dtype, device=dev),
+                     prefixes.delta_p.index_select(0, k)[0])
+    dv = torch.where(at_start, torch.zeros(3, dtype=dtype, device=dev),
+                     prefixes.delta_v.index_select(0, k)[0])
     q = quat.normalize(quat.qmul(q0, dq))
     v = v0 + g_vec * t + quat.rotate(q0, dv)
     p = p0 + v0 * t + 0.5 * g_vec * t * t + quat.rotate(q0, dp)

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from .cloud import Cloud, RingCloud, scatter_rows
+from .cloud import Cloud, RingCloud, count_ids, scatter_rows
 
 
 def project_to_rings(
@@ -55,9 +55,12 @@ def project_to_rings(
     azi = torch.where(azi >= two_pi, azi - two_pi, azi)
 
     first_idx = torch.argmax(valid.to(torch.int8))  # first True (0 if none)
-    start_ori = azi[first_idx]
+    # a gather, not azi[first_idx]: a 0-dim index tensor is read to the host
+    start_ori = azi.gather(0, first_idx.reshape(1))[0]
     if start_ori_override is not None:
-        start_ori = torch.as_tensor(start_ori_override, dtype=dtype, device=xyz.device)
+        start_ori = (start_ori_override.to(xyz.device, dtype)
+                     if torch.is_tensor(start_ori_override)
+                     else torch.full((), start_ori_override, dtype=dtype, device=xyz.device))
 
     azi_rel = azi - start_ori
     azi_rel = torch.where(azi_rel < 0, azi_rel + two_pi, azi_rel)
@@ -68,7 +71,7 @@ def project_to_rings(
     order = torch.argsort(ring_key, stable=True)
     ring_sorted = ring_key[order]
 
-    counts = torch.bincount(ring_key, minlength=n_rings + 1)[:n_rings]
+    counts = count_ids(ring_key, n_rings + 1)[:n_rings]
     starts = torch.cumsum(counts, dim=0) - counts
     rank = torch.arange(n, device=xyz.device)
     pos = rank - starts[torch.clamp(ring_sorted, 0, n_rings - 1)]

@@ -8,7 +8,9 @@ optional extrinsic prior. State layout (S = opt_window_size):
 pose_0 is the pivot.
 
 The LM ``while_loop`` is a Python loop: its exit test reads one device
-flag per iteration (one host sync per LM iteration).
+flag per iteration but the last possible one (a host sync each); its
+pieces (``lm_start``, ``lm_iteration``, ``lm_diagnostics``) are what the
+graphed step runs between those reads.
 
 ``psum_axis`` (a ``parallel.multihost.Mesh``): the plane rows are this
 rank's shard; their normal equations (and cost) are summed over the ranks
@@ -26,6 +28,7 @@ from ..parallel import multihost as MH
 from ..utils import quaternion as quat
 from ..utils.tree import tree_map
 from . import factors as FA
+from . import gn as GN
 from . import marginalization as MG
 from .preintegration import Preintegration
 
@@ -252,6 +255,105 @@ def _retract(x: OptStates, dx: torch.Tensor, s: int) -> OptStates:
     )
 
 
+class LmCarry(NamedTuple):
+    """What one LM iteration hands the next: the iterate, the normal
+    equations at it, its cost, the group costs and the damping."""
+
+    x: OptStates
+    h: torch.Tensor
+    gv: torch.Tensor
+    cost: torch.Tensor
+    gc: torch.Tensor
+    lam: torch.Tensor
+
+
+class LmProblem(NamedTuple):
+    """What every LM iteration reads and none changes."""
+
+    pres: Preintegration
+    g_vec: torch.Tensor
+    planes: PlaneFactors
+    prior: MG.PriorState   # with ``use_marg`` folded into ``valid``
+    ex_prior: tuple
+    imu_sqrt_infos: torch.Tensor
+    planes_extra: PlaneFactors
+    m: torch.Tensor        # (dim,) 1 on the free coordinates
+    eye_free: torch.Tensor  # diag(1 - m)
+
+
+def lm_start(x0: OptStates, pres: Preintegration, g_vec, planes: PlaneFactors,
+             prior: MG.PriorState, ex_prior, *, s: int, cauchy_scale: float = 1.0,
+             opt_extrinsic, use_marg, eval0=None, imu_sqrt_infos=None, planes_extra=None,
+             psum_axis=None):
+    """(problem, carry) before the first LM iteration of
+    :func:`solve_window` (same arguments)."""
+    dtype, dev = x0.p.dtype, x0.p.device
+    _, _, ex_off, dim = _layout(s)
+    if imu_sqrt_infos is None:
+        imu_sqrt_infos = FA.sqrt_info_from_covariance(pres.covariance)
+    m = torch.ones((dim,), dtype=dtype, device=dev)
+    if torch.is_tensor(opt_extrinsic):
+        m[ex_off:ex_off + 6] = opt_extrinsic.to(dtype)
+    else:
+        m[ex_off:ex_off + 6].fill_(float(opt_extrinsic))
+    prob = LmProblem(pres=pres, g_vec=g_vec, planes=planes,
+                     prior=prior._replace(valid=prior.valid & use_marg), ex_prior=ex_prior,
+                     imu_sqrt_infos=imu_sqrt_infos, planes_extra=planes_extra, m=m,
+                     eye_free=torch.diag(1.0 - m))
+    if eval0 is not None:
+        h, gv, cost, gc = assemble_normal_equations(eval0, s, psum_axis)
+    else:
+        h, gv, cost, gc = _eval_all(prob, x0, s, cauchy_scale, psum_axis)
+    lam = torch.full((), 1e-4, dtype=dtype, device=dev)
+    return prob, LmCarry(x=x0, h=h, gv=gv, cost=cost, gc=gc, lam=lam)
+
+
+def _eval_all(prob: LmProblem, x: OptStates, s: int, cauchy_scale: float, psum_axis):
+    flags = {"cauchy_scale": cauchy_scale, "imu_sqrt_infos": prob.imu_sqrt_infos}
+    return assemble_normal_equations(
+        _evaluate(x, prob.pres, prob.g_vec, prob.planes, prob.prior, prob.ex_prior, flags, s,
+                  prob.planes_extra), s, psum_axis)
+
+
+def lm_iteration(prob: LmProblem, c: LmCarry, *, s: int, cauchy_scale: float = 1.0,
+                 psum_axis=None, step_abort_deg: float = 0.05, step_abort_cm: float = 0.05,
+                 ftol: float = 1e-6):
+    """One LM iteration of :func:`solve_window`: (next carry, done), with
+    ``done`` a device bool."""
+    pose_off = _layout(s)[0]
+    m = prob.m
+    h_m = (c.h * m[None, :]) * m[:, None] + prob.eye_free
+    damped = h_m + c.lam * torch.diag(torch.clamp_min(torch.diagonal(h_m), 1e-6))
+    dx = -GN.solve(damped, c.gv * m) * m
+    x_new = _retract(c.x, dx, s)
+    h2, g2, new_cost, gc2 = _eval_all(prob, x_new, s, cauchy_scale, psum_axis)
+    accept = new_cost < c.cost
+    x = tree_map(lambda a, b: torch.where(accept, a, b), x_new, c.x)
+    h = torch.where(accept, h2, c.h)
+    gv = torch.where(accept, g2, c.gv)
+    gc = torch.where(accept, gc2, c.gc)
+    dpose = dx[pose_off:pose_off + 6 * (s + 1)].reshape(s + 1, 6)
+    dt_cm = torch.max(torch.linalg.norm(dpose[:, 0:3], dim=-1)) * 100.0
+    dr_deg = torch.max(torch.linalg.norm(dpose[:, 3:6], dim=-1)) * (180.0 / math.pi)
+    small = (dr_deg < step_abort_deg) & (dt_cm < step_abort_cm)
+    done = (accept & (c.cost - new_cost <= ftol * c.cost)) | small
+    lam = torch.where(accept, torch.clamp_min(c.lam * 0.5, 1e-8), c.lam * 4.0)
+    cost = torch.where(accept, new_cost, c.cost)
+    return LmCarry(x=x, h=h, gv=gv, cost=cost, gc=gc, lam=lam), done
+
+
+def lm_diagnostics(prob: LmProblem, c: LmCarry, iterations: int, psum_axis=None):
+    """The :class:`SolveDiagnostics` after ``iterations`` LM iterations."""
+    n_plane = torch.sum(prob.planes.mask)
+    if prob.planes_extra is not None:
+        n_plane = n_plane + torch.sum(prob.planes_extra.mask)
+    if psum_axis is not None:
+        n_plane = MH.psum(n_plane, psum_axis)
+    return SolveDiagnostics(
+        cost_marg=c.gc[0], cost_imu=c.gc[1], cost_plane=c.gc[2], n_plane=n_plane,
+        iterations=torch.full((), iterations, dtype=torch.int64, device=c.gc.device))
+
+
 def solve_window(x0: OptStates, pres: Preintegration, g_vec, planes: PlaneFactors,
                  prior: MG.PriorState, ex_prior, *, s: int, max_iterations: int = 10,
                  cauchy_scale: float = 1.0, opt_extrinsic, use_marg, eval0=None,
@@ -264,61 +366,26 @@ def solve_window(x0: OptStates, pres: Preintegration, g_vec, planes: PlaneFactor
     already reflecting the effective prior validity), reused as the first
     evaluation. The loop exits when the relative cost drop of an accepted
     step falls below ``ftol`` or the pose step shrinks below the
-    reference's GN abort thresholds (see the reference docstring)."""
-    dtype, dev = x0.p.dtype, x0.p.device
-    pose_off, sb_off, ex_off, dim = _layout(s)
-    if imu_sqrt_infos is None:
-        imu_sqrt_infos = FA.sqrt_info_from_covariance(pres.covariance)
-    flags = {"cauchy_scale": cauchy_scale, "imu_sqrt_infos": imu_sqrt_infos}
-
-    m = torch.ones((dim,), dtype=dtype, device=dev)
-    m[ex_off:ex_off + 6] = torch.as_tensor(opt_extrinsic, device=dev).to(dtype)
-    prior_used = prior._replace(valid=prior.valid & torch.as_tensor(use_marg, device=dev))
-
-    def eval_all(x):
-        return assemble_normal_equations(
-            _evaluate(x, pres, g_vec, planes, prior_used, ex_prior, flags, s, planes_extra), s,
-            psum_axis)
-
-    if eval0 is not None:
-        h, gv, cost, gc = assemble_normal_equations(eval0, s, psum_axis)
-    else:
-        h, gv, cost, gc = eval_all(x0)
-    x = x0
-    lam = torch.tensor(1e-4, dtype=dtype, device=dev)
-    eye_free = torch.diag(1.0 - m)
-    rad2deg = 180.0 / math.pi
+    reference's GN abort thresholds (see the reference docstring). Its
+    pieces, :func:`lm_start`, :func:`lm_iteration` and
+    :func:`lm_diagnostics`, are what the graphed step runs."""
+    prob, c = lm_start(x0, pres, g_vec, planes, prior, ex_prior, s=s,
+                       cauchy_scale=cauchy_scale, opt_extrinsic=opt_extrinsic,
+                       use_marg=use_marg, eval0=eval0, imu_sqrt_infos=imu_sqrt_infos,
+                       planes_extra=planes_extra, psum_axis=psum_axis)
     it = 0
     while it < max_iterations:
-        h_m = (h * m[None, :]) * m[:, None] + eye_free
-        damped = h_m + lam * torch.diag(torch.clamp_min(torch.diagonal(h_m), 1e-6))
-        dx = -torch.linalg.solve(damped, gv * m) * m
-        x_new = _retract(x, dx, s)
-        h2, g2, new_cost, gc2 = eval_all(x_new)
-        accept = new_cost < cost
-        x = tree_map(lambda a, b: torch.where(accept, a, b), x_new, x)
-        h = torch.where(accept, h2, h)
-        gv = torch.where(accept, g2, gv)
-        gc = torch.where(accept, gc2, gc)
-        dpose = dx[pose_off:pose_off + 6 * (s + 1)].reshape(s + 1, 6)
-        dt_cm = torch.max(torch.linalg.norm(dpose[:, 0:3], dim=-1)) * 100.0
-        dr_deg = torch.max(torch.linalg.norm(dpose[:, 3:6], dim=-1)) * rad2deg
-        small = (dr_deg < step_abort_deg) & (dt_cm < step_abort_cm)
-        done = (accept & (cost - new_cost <= ftol * cost)) | small
-        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-8), lam * 4.0)
-        cost = torch.where(accept, new_cost, cost)
+        c, done = lm_iteration(prob, c, s=s, cauchy_scale=cauchy_scale, psum_axis=psum_axis,
+                               step_abort_deg=step_abort_deg, step_abort_cm=step_abort_cm,
+                               ftol=ftol)
         it += 1
         if bool(done):  # one host sync per LM iteration
             break
+    return c.x, lm_diagnostics(prob, c, it, psum_axis)
 
-    n_plane = torch.sum(planes.mask)
-    if planes_extra is not None:
-        n_plane = n_plane + torch.sum(planes_extra.mask)
-    if psum_axis is not None:
-        n_plane = MH.psum(n_plane, psum_axis)
-    diag = SolveDiagnostics(cost_marg=gc[0], cost_imu=gc[1], cost_plane=gc[2],
-                            n_plane=n_plane, iterations=torch.tensor(it, device=dev))
-    return x, diag
+
+#: states eliminated by :func:`marginalize_pivot`: pose_0 and sb_0
+N_MARG = 15
 
 
 def marginalize_pivot(x: OptStates, pre_01: Preintegration, g_vec, planes: PlaneFactors,
@@ -328,7 +395,29 @@ def marginalize_pivot(x: OptStates, pre_01: Preintegration, g_vec, planes: Plane
     """New prior by Schur-eliminating pose_0 + sb_0 (Estimator.cc:2152-2244):
     old prior, IMU factor (0, 1) and all plane factors at the post-solve
     states, in the full layout [pose_0 (6) | sb_0 (9) | keep (15S+6)]; with
-    ``psum_axis`` the plane terms are summed over the ranks."""
+    ``psum_axis`` the plane terms are summed over the ranks. Its pieces
+    (:func:`marginal_system`, the ``schur``/``factor`` steps of
+    ``ops/marginalization`` and :func:`prior_from_factor`) are what the
+    graphed step runs, with the two ``eigh`` calls between graphs."""
+    a, b = marginal_system(x, pre_01, g_vec, planes, prior, s=s, cauchy_scale=cauchy_scale,
+                           psum_axis=psum_axis, planes_extra=planes_extra)
+    a_new, b_new = MG.schur_marginalize(a, b, N_MARG)
+    lin_jac, lin_res = MG.factorize_prior(a_new, b_new)
+    return prior_from_factor(x, lin_jac, lin_res)
+
+
+def prior_from_factor(x: OptStates, lin_jac, lin_res) -> MG.PriorState:
+    """The new prior: the factor and the kept states' linearization values."""
+    return MG.PriorState(lin_jac=lin_jac, lin_res=lin_res, x0_q=x.q[1:], x0_p=x.p[1:],
+                         x0_sb=x.sb[1:], x0_ex_q=x.ex_q, x0_ex_p=x.ex_p,
+                         valid=torch.ones((), dtype=torch.bool, device=x.p.device))
+
+
+def marginal_system(x: OptStates, pre_01: Preintegration, g_vec, planes: PlaneFactors,
+                    prior: MG.PriorState, *, s: int, cauchy_scale: float = 1.0,
+                    psum_axis: MH.Mesh = None, planes_extra: PlaneFactors = None):
+    """(A, b) of :func:`marginalize_pivot` in the full layout, before the
+    Schur complement."""
     dtype, dev = x.p.dtype, x.p.device
     n = 15 * s + 6
     m = 15
@@ -345,14 +434,15 @@ def marginalize_pivot(x: OptStates, pre_01: Preintegration, g_vec, planes: Plane
     # old prior with drop set {pose_0, sb_0}: its columns permuted into the
     # [drop | keep] layout
     r_marg = MG.prior_residual(prior, x.q[:s], x.p[:s], x.sb[:s], x.ex_q, x.ex_p)
-    perm = []
-    for i in range(s):
-        perm.extend(range(pose_col(i), pose_col(i) + 6))
-    for i in range(s):
-        perm.extend(range(sb_col(i), sb_col(i) + 9))
-    perm.extend(range(ex_col, ex_col + 6))
+    # the prior's blocks [pose_0..S-1 | sb_0..S-1 | ex] land in runs of
+    # columns: pose_0, pose_1..S-1 (contiguous), sb_0, sb_1..S-1, ex
     jm_full = torch.zeros((n, full), dtype=dtype, device=dev)
-    jm_full[:, torch.tensor(perm, device=dev)] = prior.lin_jac
+    lj = prior.lin_jac
+    jm_full[:, pose_col(0):pose_col(0) + 6] = lj[:, 0:6]
+    jm_full[:, pose_col(1):pose_col(1) + 6 * (s - 1)] = lj[:, 6:6 * s]
+    jm_full[:, sb_col(0):sb_col(0) + 9] = lj[:, 6 * s:6 * s + 9]
+    jm_full[:, sb_col(1):sb_col(1) + 9 * (s - 1)] = lj[:, 6 * s + 9:15 * s]
+    jm_full[:, ex_col:ex_col + 6] = lj[:, 15 * s:15 * s + 6]
     w_pr = prior.valid.to(dtype)
     a = w_pr * (jm_full.T @ jm_full)
     b = w_pr * (jm_full.T @ r_marg)
@@ -395,10 +485,4 @@ def marginalize_pivot(x: OptStates, pre_01: Preintegration, g_vec, planes: Plane
 
     if psum_axis is not None:
         a_pl, b_pl = _psum_packed((a_pl, b_pl), psum_axis)
-    a = a + a_pl
-    b = b + b_pl
-    a_new, b_new = MG.schur_marginalize(a, b, m)
-    lin_jac, lin_res = MG.factorize_prior(a_new, b_new)
-    return MG.PriorState(lin_jac=lin_jac, lin_res=lin_res, x0_q=x.q[1:], x0_p=x.p[1:],
-                         x0_sb=x.sb[1:], x0_ex_q=x.ex_q, x0_ex_p=x.ex_p,
-                         valid=torch.tensor(True, device=dev))
+    return a + a_pl, b + b_pl

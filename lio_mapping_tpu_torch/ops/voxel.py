@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .cloud import Cloud
+from .cloud import Cloud, count_ids
 
 _BITS = 10
 _HALF = 1 << (_BITS - 1)  # 512
@@ -60,7 +60,7 @@ def segment_sum_sorted(values: torch.Tensor, seg: torch.Tensor, n_seg: int) -> t
     segment id per row (ids >= n_seg are dropped). Deterministic: one
     segmented reduction over contiguous runs, no atomics."""
     seg = torch.clamp(seg, max=n_seg)
-    lengths = torch.bincount(seg, minlength=n_seg + 1)
+    lengths = count_ids(seg, n_seg + 1)
     out = torch.segment_reduce(values, "sum", lengths=lengths, axis=0, unsafe=True)
     return out[:n_seg]
 

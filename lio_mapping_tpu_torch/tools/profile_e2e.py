@@ -75,7 +75,8 @@ def main(argv=None):
     t_step = timeit(lambda: EST.lio_step_impl(state, feats.surf_less_flat, samples, cfg), dev)
     print(f"lio_step (device-resident inputs): {t_step:.2f} ms")
     print(f"sum: {t_feat + t_step:.2f} ms")
-    print(json.dumps({"device": device_label(dev), "process_sweep_ms": round(t_feat, 3),
+    print(json.dumps({"device": device_label(dev), "path": "eager",
+                      "process_sweep_ms": round(t_feat, 3),
                       "lio_step_ms": round(t_step, 3), "sum_ms": round(t_feat + t_step, 3),
                       "knn_launches": knn_kernel.LAUNCHES}))
     return 0

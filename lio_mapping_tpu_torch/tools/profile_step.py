@@ -184,6 +184,7 @@ def main(argv=None):
     agg = {
         "profile": args.profile,
         "device": device_label(dev),
+        "path": "eager (graphs=False): each stage called alone",
         "knn_launches": knn_kernel.LAUNCHES,
         "sum_stage_ms": round(total_ms, 2),
         "sum_stage_gflop": round(total_gf, 2),

@@ -47,7 +47,9 @@ def main(argv=None):
 
     cfg = build_cfg(args.profile)
     traj = synthetic.Trajectory(g_norm=cfg.estimator.imu.g_norm)
-    pipe = LioPipeline(cfg, device=dev, dtype=torch.float32)
+    # eager: the truncation hook cuts the eager step, and the captured state
+    # must not be a graph's static buffer that the next sweep overwrites
+    pipe = LioPipeline(cfg, device=dev, dtype=torch.float32, graphs=False)
     dt = cfg.sensor.scan_period
 
     state_cap = {}
@@ -75,8 +77,8 @@ def main(argv=None):
     samples = PI.unpack_samples(torch.as_tensor(state_cap["samples"], dtype=torch.float32,
                                                 device=dev))
     print(f"profile={args.profile}  (cumulative | delta)")
-    print("eager PyTorch: a truncated step stops after its stage, so cumulative is exact "
-          "(no dead-code elimination involved)")
+    print("eager PyTorch (graphs=False): a truncated step stops after its stage, so "
+          "cumulative is exact (no dead-code elimination involved)")
     rows, prev = [], 0.0
     knn0 = knn_kernel.LAUNCHES
     try:
@@ -91,8 +93,9 @@ def main(argv=None):
             prev = t
     finally:
         EST._TRUNCATE_STAGE = None
-    print(json.dumps({"profile": args.profile, "device": device_label(dev), "reps": args.reps,
-                      "stages": rows, "knn_launches": knn_kernel.LAUNCHES - knn0}))
+    print(json.dumps({"profile": args.profile, "device": device_label(dev), "path": "eager",
+                      "reps": args.reps, "stages": rows,
+                      "knn_launches": knn_kernel.LAUNCHES - knn0}))
     return 0
 
 

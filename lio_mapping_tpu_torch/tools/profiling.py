@@ -2,22 +2,26 @@
 paths (``chip_smoke.py`` and the tools of this package).
 
 ``stage_breakdown`` times one call by the estimator step's stages, on the
-host clock between ``torch.cuda.synchronize`` calls on a CUDA device.
+host clock between ``torch.cuda.synchronize`` calls on a CUDA device; it
+times the eager step (a pipeline made with ``graphs=False``) and raises on
+a graphed one, whose stages run inside replayed CUDA graphs.
 ``launches_by_path``, ``plain_searches`` and ``kernel_shapes`` attribute the
-KNN searches made inside a block: the kernel's launches
-(``ops/knn_kernel.LAUNCHES``) and the plain version's searches
-(``ops/knn.knn_tiled``) to the functions that made them, and the kernel's
-searches to their shapes. They patch module attributes for the block only.
+KNN searches made inside a block: the kernel's launches and the plain
+version's searches to the functions on whose Python stack they were made,
+and the kernel's searches to their shapes. They listen to
+``ops/knn_kernel.LISTENERS``, which also hears the searches replayed inside
+the step's CUDA graphs, with the frames that made them at capture.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import inspect
 import time
 
 import torch
 
-from ..ops import knn as KNN
 from ..ops import knn_kernel
 from ..utils.timing import synchronize
 
@@ -27,20 +31,31 @@ def _stage_targets():
     from ..models import pipeline as PL
 
     return [(PL, "process_sweep"), (EST, "predict_and_push"), (EST, "local_map"),
-            (EST, "_associate_frame"), (EST, "_calculate_laser_odom"), (EST.KNN, "knn"),
-            (EST.SV, "_evaluate"), (EST.SV, "solve_window"), (EST.SV, "marginalize_pivot")]
+            (EST, "_associate_frame"), (EST, "_gn_system"), (EST.KNN, "knn"),
+            (EST.SV, "_evaluate"), (EST.SV, "lm_iteration"), (EST.SV, "marginal_system"),
+            (EST.MG, "_eigh")]
 
 
 def stage_breakdown(fn, device):
-    """(``fn()``, stats): wall time of one call by stage, each stage of the
-    estimator step timed inclusive, synchronised before and after, with its
-    call count; the whole call under ``"sweep"``. Nested stages overlap:
-    ``_calculate_laser_odom`` holds its own ``_associate_frame`` and ``knn``
-    calls, ``solve_window`` its ``_evaluate`` calls."""
+    """(``fn()``, stats): wall time of one call of the eager step by stage,
+    each stage timed inclusive, synchronised before and after, with its call
+    count; the whole call under ``"sweep"``. Nested stages overlap:
+    ``_gn_system`` (a mini-GN round up to its step) holds its own
+    ``_associate_frame`` and ``knn`` calls, ``lm_iteration`` its
+    ``_evaluate``; ``_eigh`` is the marginalization's two eigendecompositions.
+    Raises if a CUDA graph of the step replays inside the call: time a
+    pipeline made with ``graphs=False``."""
+    from ..models import step_graph as SG
+
     dev = torch.device(device)
     stats = {}
 
+    def graphed(*args, **kwargs):
+        raise ValueError("stage_breakdown times the eager step: run the pipeline with "
+                         "graphs=False")
+
     def wrap(name, fn_):
+        @functools.wraps(fn_)
         def run(*args, **kwargs):
             synchronize(dev)
             t0 = time.perf_counter()
@@ -53,8 +68,10 @@ def stage_breakdown(fn, device):
         return run
 
     originals = [(mod, name, getattr(mod, name)) for mod, name in _stage_targets()]
-    for mod, name, fn_ in originals:
+    originals.append((SG.StepGraphs, "stretch", SG.StepGraphs.stretch))
+    for mod, name, fn_ in originals[:-1]:
         setattr(mod, name, wrap(name, fn_))
+    SG.StepGraphs.stretch = graphed
     try:
         synchronize(dev)
         t0 = time.perf_counter()
@@ -67,79 +84,75 @@ def stage_breakdown(fn, device):
     return out, stats
 
 
+def _codes(targets) -> dict:
+    """name -> the code object of each (module, function) target."""
+    return {name: inspect.unwrap(getattr(mod, attr)).__code__
+            for name, (mod, attr) in targets.items()}
+
+
 @contextlib.contextmanager
-def launches_by_path(counts, targets, calls=None):
-    """Attribute the KNN kernel's launches to the path that made them: each
-    (module, function) in ``targets`` is wrapped for the block, and the
-    launches made inside it are added to ``counts[name]`` (and its calls to
-    ``calls[name]`` when given)."""
-    originals = [(name, mod, attr, getattr(mod, attr)) for name, (mod, attr) in targets.items()]
+def _listening(kind, targets, counts):
+    """Inside the block, each search of ``kind`` adds one to
+    ``counts[name]`` for every target on the stack that made it."""
+    codes = _codes(targets)
 
-    def wrap(name, fn):
-        def run(*args, **kwargs):
-            before = knn_kernel.LAUNCHES
-            if calls is not None:
-                calls[name] = calls.get(name, 0) + 1
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                counts[name] = counts.get(name, 0) + knn_kernel.LAUNCHES - before
-        return run
+    def listen(kind_, shape, stack):
+        if kind_ != kind:
+            return
+        frames = set(stack)
+        for name, code in codes.items():
+            if code in frames:
+                counts[name] = counts.get(name, 0) + 1
 
-    for name, mod, attr, fn in originals:
-        setattr(mod, attr, wrap(name, fn))
+    knn_kernel.LISTENERS.append(listen)
     try:
         yield counts
     finally:
-        for _, mod, attr, fn in originals:
-            setattr(mod, attr, fn)
+        knn_kernel.LISTENERS.remove(listen)
 
 
 @contextlib.contextmanager
+def launches_by_path(counts, targets, calls=None):
+    """Attribute the KNN kernel's launches to the path that made them: a
+    launch made (or, in a CUDA graph, captured) inside a call of the
+    (module, function) ``targets[name]`` adds one to ``counts[name]``;
+    with ``calls``, each call of a target adds one to ``calls[name]``."""
+    originals = []
+    if calls is not None:
+        def wrap(name, fn):
+            @functools.wraps(fn)
+            def run(*args, **kwargs):
+                calls[name] = calls.get(name, 0) + 1
+                return fn(*args, **kwargs)
+            return run
+
+        originals = [(mod, attr, getattr(mod, attr)) for mod, attr in targets.values()]
+    with _listening("kernel", targets, counts):
+        for name, (mod, attr) in targets.items():
+            if calls is not None:
+                setattr(mod, attr, wrap(name, getattr(mod, attr)))
+        try:
+            yield counts
+        finally:
+            for mod, attr, fn in originals:
+                setattr(mod, attr, fn)
+
+
 def plain_searches(counts, targets):
     """Count the plain version's searches (``ops/knn.knn_tiled``) made
     inside each (module, function) of ``targets``, into ``counts[name]``."""
-    active = []
-    orig_tiled = KNN.knn_tiled
-    originals = [(name, mod, attr, getattr(mod, attr)) for name, (mod, attr) in targets.items()]
-
-    def tiled(*args, **kwargs):
-        for name in active:
-            counts[name] = counts.get(name, 0) + 1
-        return orig_tiled(*args, **kwargs)
-
-    def wrap(name, fn):
-        def run(*args, **kwargs):
-            active.append(name)
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                active.pop()
-        return run
-
-    KNN.knn_tiled = tiled
-    for name, mod, attr, fn in originals:
-        setattr(mod, attr, wrap(name, fn))
-    try:
-        yield counts
-    finally:
-        KNN.knn_tiled = orig_tiled
-        for _, mod, attr, fn in originals:
-            setattr(mod, attr, fn)
+    return _listening("plain", targets, counts)
 
 
 @contextlib.contextmanager
 def kernel_shapes(shapes):
     """Count the kernel's searches by (queries, map rows, k) in ``shapes``."""
-    orig = knn_kernel.knn_cuda
+    def listen(kind, shape, stack):
+        if kind == "kernel":
+            shapes[shape] = shapes.get(shape, 0) + 1
 
-    def run(queries, q_mask, db, db_mask, k=5, prune_beyond=None):
-        key = f"{queries.shape[0]}x{db.shape[0]}x{k}"
-        shapes[key] = shapes.get(key, 0) + 1
-        return orig(queries, q_mask, db, db_mask, k=k, prune_beyond=prune_beyond)
-
-    knn_kernel.knn_cuda = run
+    knn_kernel.LISTENERS.append(listen)
     try:
         yield shapes
     finally:
-        knn_kernel.knn_cuda = orig
+        knn_kernel.LISTENERS.remove(listen)

@@ -87,10 +87,19 @@ def device_kernel_ms(fn, device, reps: int = 10) -> dict:
     return out
 
 
+#: the CUDA runtime and driver calls that launch one kernel, and one graph
+KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                       "cuLaunchKernelEx")
+GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
 def count_launches(fn, device):
-    """(``fn()``, counts): kernel launches, device busy time and the kernels
-    that took most of it, for one call of ``fn`` (torch.profiler; its
-    overhead inflates ``wall_ms``)."""
+    """(``fn()``, counts): launch calls (``runtime_launches``: kernels and
+    CUDA graphs, also apart as ``kernel_launch_calls`` and
+    ``graph_launches``), the device kernels that ran (those inside the
+    graphs too), device busy time and the kernels that took most of it, for
+    one call of ``fn`` (torch.profiler; its overhead inflates
+    ``wall_ms``)."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = _cuda(device, "count_launches")
@@ -100,18 +109,20 @@ def count_launches(fn, device):
         out = fn()
         torch.cuda.synchronize(dev)
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    runtime = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
-    n_launch = 0
+    n_launch = n_graph = 0
     by_kernel = {}
     for evt in prof.events():
-        if evt.name in runtime:
+        if evt.name in KERNEL_LAUNCH_CALLS:
             n_launch += 1
+        elif evt.name in GRAPH_LAUNCH_CALLS:
+            n_graph += 1
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             rec = by_kernel.setdefault(evt.name[:80], [0, 0.0])
             rec[0] += 1
             rec[1] += evt.time_range.elapsed_us() / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
-    return out, {"runtime_launches": n_launch,
+    return out, {"runtime_launches": n_launch + n_graph, "kernel_launch_calls": n_launch,
+                 "graph_launches": n_graph,
                  "device_kernels": sum(c for c, _ in by_kernel.values()),
                  "device_busy_ms": sum(ms for _, ms in by_kernel.values()), "wall_ms": wall_ms,
                  "top_device_kernels": [[name, c, ms] for name, (c, ms) in top]}
@@ -119,7 +130,8 @@ def count_launches(fn, device):
 
 def count_syncs(fn, device):
     """(``fn()``, host syncs of the call): warnings of the CUDA sync-debug
-    mode."""
+    mode that report a synchronizing operation (not the mode's notice, once
+    a process, that it is a prototype)."""
     dev = _cuda(device, "count_syncs")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -129,7 +141,7 @@ def count_syncs(fn, device):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize(dev)
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
 # ---------------------------------------------------------------------------

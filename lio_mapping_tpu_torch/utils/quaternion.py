@@ -20,7 +20,10 @@ __all__ = [
 
 
 def identity(dtype=torch.float32, device=None) -> torch.Tensor:
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    """[1, 0, 0, 0], made on ``device`` by fills (no host-to-device copy)."""
+    q = torch.zeros(4, dtype=dtype, device=device)
+    q[0:1].fill_(1.0)
+    return q
 
 
 def normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -163,7 +166,8 @@ def slerp(q0: torch.Tensor, q1: torch.Tensor, s) -> torch.Tensor:
     d = torch.clamp(torch.abs(d), -1.0, 1.0)
     theta = torch.arccos(d)
     sin_theta = torch.sin(theta)
-    s = torch.as_tensor(s, dtype=q0.dtype, device=q0.device)
+    s = (s.to(q0.device, q0.dtype) if torch.is_tensor(s)
+         else torch.full((), s, dtype=q0.dtype, device=q0.device))
     if s.ndim == q0.ndim - 1:
         s = s[..., None]
     use_lerp = sin_theta < 1e-5

@@ -375,3 +375,145 @@ def test_ring_knn_two_ranks_on_the_card(dev, tmp_path, gate):
         d_ring, d_ref = _d64(q, db, i), _d64(q, db, ref_i)
         np.testing.assert_allclose(d_ring[differ], d_ref[differ], atol=_tol(q, db))
         assert differ.mean() < 1e-3, f"{int(differ.sum())} indices differ"
+
+
+# ---------------------------------------------------------------------------
+# the graphed INITED step (models/step_graph.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_SWEEPS = 24  # the small config goes INITED on sweep 10; then 7 consumed sweeps
+
+
+def _graph_cfg():
+    """A small closed-loop config (window 5, optimization window 3, every
+    2nd sweep consumed, narrow stacks and feature capacities) on the
+    indoor profile."""
+    import dataclasses
+
+    from lio_mapping_tpu_torch.config import LioConfig
+
+    base = LioConfig.indoor()
+    est = dataclasses.replace(
+        base.estimator, window_size=5, opt_window_size=3, init_window_factor=1, odom_io=2,
+        estimate_extrinsic=0, opt_extrinsic=False, extrinsic_rotation=(1, 0, 0, 0, 1, 0, 0, 0, 1),
+        extrinsic_translation=(0.0, 0.0, 0.0), surf_stack_cap=2048, local_map_filtered_cap=8192,
+        features_per_frame_cap=2048, max_solver_iterations=8)
+    feat = dataclasses.replace(base.feature, corner_sharp_cap=128, corner_less_sharp_cap=1024,
+                               surf_flat_cap=256, surf_less_flat_cap=2048)
+    return dataclasses.replace(base, estimator=est, feature=feat)
+
+
+def _graph_sweeps(cfg):
+    from lio_mapping_tpu_torch.io import synthetic as S
+
+    traj = S.Trajectory(g_norm=cfg.estimator.imu.g_norm)
+    dt = cfg.sensor.scan_period
+    out = []
+    for i in range(GRAPH_SWEEPS):
+        xyz, mask = S.simulate_sweep(traj, i * dt, n_azimuth=540)
+        ts, acc, gyr = S.simulate_imu_interval(traj, i * dt, i * dt + dt, 200.0)
+        a0, w0 = traj.imu(i * dt)
+        out.append((xyz, mask, (np.diff(np.concatenate([[i * dt], ts])), acc, gyr, a0, w0)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def graph_runs():
+    """The small config's sweeps through a graphed pipeline (the default on
+    the card) and an eager one (``graphs=False``): per sweep the outputs
+    on the host and the kernel's launches, and both final states."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from lio_mapping_tpu_torch.models.pipeline import LioPipeline
+    from lio_mapping_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = _graph_cfg()
+    sweeps = _graph_sweeps(cfg)
+    runs = {}
+    for graphs in (True, False):
+        pipe = LioPipeline(cfg, device="cuda", graphs=None if graphs else False)
+        assert pipe.graphs == graphs
+        outs, launches = [], []
+        for xyz, mask, imu in sweeps:
+            before = TKK.LAUNCHES
+            out = pipe.process(xyz, mask, pipe.make_samples(*imu))
+            torch.cuda.synchronize()
+            launches.append(TKK.LAUNCHES - before)
+            outs.append(tree_map(lambda t: t.cpu() if torch.is_tensor(t) else t, out))
+        runs[graphs] = {"outs": outs, "launches": launches, "pipe": pipe,
+                        "state": [t.cpu() for t in tree_leaves(pipe.est_state)]}
+    return runs
+
+
+@pytest.mark.cuda
+def test_graphed_step_equals_the_eager_step_bit_for_bit(graph_runs):
+    """Six or more consumed INITED sweeps (and the skipped sweeps' predicts)
+    through the replayed graphs give the eager step's outputs and final
+    state bit for bit."""
+    from lio_mapping_tpu_torch.utils.tree import tree_leaves
+
+    g, e = graph_runs[True], graph_runs[False]
+    consumed = [i for i, o in enumerate(e["outs"]) if o["stage"] == "INITED" and "body_pose" in o]
+    assert len(consumed) >= 6
+    for i, (og, oe) in enumerate(zip(g["outs"], e["outs"])):
+        assert sorted(og) == sorted(oe), i
+        for key in oe:
+            for a, b in zip(tree_leaves(og[key]), tree_leaves(oe[key])):
+                if torch.is_tensor(b):
+                    assert torch.equal(a, b), (i, key)
+    for a, b in zip(g["state"], e["state"]):
+        assert torch.equal(a, b)
+    stats = g["pipe"]._step_graphs.stats
+    assert stats["replays"] > stats["captures"] > 0
+    mem = g["pipe"]._step_graphs.memory_bytes()
+    assert mem["pool"] > 0 and mem["static"] > 0
+
+
+@pytest.mark.cuda
+def test_knn_launches_of_a_replay_equal_the_eager_sweep(graph_runs):
+    """The kernel's launches counted per sweep, replays included, equal the
+    eager sweep's (the searches inside a graph are counted at each replay)."""
+    assert graph_runs[True]["launches"] == graph_runs[False]["launches"]
+    assert sum(graph_runs[True]["launches"]) > 0
+
+
+@pytest.mark.cuda
+def test_count_launches_sees_the_graphs(graph_runs):
+    """``count_launches`` on a graphed consumed sweep counts its graph
+    launches and the device kernels inside them, with far fewer launch
+    calls than kernels."""
+    from lio_mapping_tpu_torch.utils.profiling import count_launches
+
+    pipe = graph_runs[True]["pipe"]
+    xyz, mask, imu = _graph_sweeps(pipe.cfg)[-1]
+    if not pipe.will_consume():
+        pipe.process(xyz, mask, pipe.make_samples(*imu))
+    out, c = count_launches(lambda: pipe.process(xyz, mask, pipe.make_samples(*imu)), "cuda")
+    assert "body_pose" in out
+    assert c["graph_launches"] > 0
+    assert c["device_kernels"] > 4 * c["runtime_launches"]
+
+
+@pytest.mark.cuda
+def test_capture_meeting_a_host_read_raises(dev):
+    """A stretch that reads a tensor back to the host cannot be captured:
+    the runner raises (its warm-up ran eagerly) and does not fall back. Run
+    in a subprocess: a failed capture leaves the process's CUDA state to
+    the test alone."""
+    import subprocess
+
+    code = (
+        "import torch\n"
+        "from lio_mapping_tpu_torch.models.step_graph import StepGraphs\n"
+        "g = StepGraphs('cuda')\n"
+        "v = {'x': torch.ones(4, device='cuda')}\n"
+        "try:\n"
+        "    g.stretch(('bad',), lambda v: {'y': v['x'] * float(v['x'].sum())}, v)\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', type(e).__name__)\n"
+        "else:\n"
+        "    print('CAPTURED', g.stats)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=root, timeout=300)
+    assert "RAISED" in proc.stdout, proc.stdout + proc.stderr

@@ -233,3 +233,70 @@ def test_tool_exits_without_cuda(name, monkeypatch):
     with pytest.raises(SystemExit) as exc:
         TOOLS[name].main([])
     assert exc.value.code not in (0, None)
+
+
+# ---------------------------------------------------------------------------
+# the search counters (tools/profiling.py) and CUDA graph replays
+# ---------------------------------------------------------------------------
+
+def _outer_search(q, db):
+    """A path that makes one plain search and reports one kernel launch (the
+    kernel itself needs the card)."""
+    from lio_mapping_tpu_torch.ops import knn as TK
+    from lio_mapping_tpu_torch.ops import knn_kernel as TKK
+
+    TKK.note_search("kernel", q.shape[0], db.shape[0], 5)
+    return TK.knn_tiled(q, torch.ones(q.shape[0], dtype=torch.bool), db,
+                        torch.ones(db.shape[0], dtype=torch.bool), k=5)
+
+
+def _replayer(events):
+    from lio_mapping_tpu_torch.ops import knn_kernel as TKK
+
+    TKK.replayed(events)
+
+
+def test_counters_count_searches_by_path_live_and_replayed(rng):
+    """``launches_by_path``, ``plain_searches`` and ``kernel_shapes`` count
+    a search made in the block by the functions on its stack; a search
+    recorded while a CUDA graph is captured counts nothing then, and counts
+    at each replay, by the frames inside the capture and the frames that
+    replay it (``ops/knn_kernel.recording`` / ``replayed``)."""
+    import sys
+
+    from lio_mapping_tpu_torch.ops import knn_kernel as TKK
+    from lio_mapping_tpu_torch.tools.profiling import (kernel_shapes, launches_by_path,
+                                                       plain_searches)
+
+    me = sys.modules[__name__]
+    q = torch.as_tensor(rng.normal(size=(64, 3)))
+    db = torch.as_tensor(rng.normal(size=(300, 3)))
+    targets = {"outer": (me, "_outer_search"), "replay": (me, "_replayer")}
+    kernel, plain, shapes = {}, {}, {}
+    before = TKK.LAUNCHES
+    with launches_by_path(kernel, targets), plain_searches(plain, targets), \
+            kernel_shapes(shapes):
+        _outer_search(q, db)
+        with TKK.recording() as events:
+            _outer_search(q, db)
+        assert TKK.LAUNCHES == before + 1 and plain == {"outer": 1}
+        for _ in range(3):
+            _replayer(events)
+    assert TKK.LAUNCHES == before + 4
+    assert kernel == {"outer": 4, "replay": 3}
+    assert plain == {"outer": 4, "replay": 3}
+    assert shapes == {"64x300x5": 4}
+    assert not TKK.LISTENERS
+
+
+def test_stage_breakdown_refuses_a_graphed_step():
+    """``stage_breakdown`` times the eager step only: a stretch of the
+    graphed runner inside it raises."""
+    from lio_mapping_tpu_torch.models import step_graph as SG
+    from lio_mapping_tpu_torch.tools.profiling import stage_breakdown
+
+    g = SG.StepGraphs("cpu")
+    with pytest.raises(ValueError, match="graphs=False"):
+        stage_breakdown(lambda: g.stretch(("x",), lambda v: {"y": torch.ones(2)}, {}), "cpu")
+    # restored after the call
+    g.stretch(("x",), lambda v: {"y": torch.ones(2)}, {})
