@@ -6,8 +6,11 @@
 Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit;
-2. build: ``csrc/knn.cu`` compiled with ``nvcc`` for ``sm_90a`` from the
-   sources in this checkout (plus ``ptxas``'s register report);
+2. build: ``csrc/knn.cu``, ``csrc/eigh.cu``, ``csrc/lu_solve.cu`` and
+   ``csrc/graph_if.cu`` compiled with ``nvcc`` for ``sm_90a`` from the
+   sources in this checkout,
+   one ``nvcc`` each, all started together (plus ``ptxas``'s register
+   report);
 3. kernel vs plain version on the card, at the shapes the main paths give
    the KNN: the estimator's 5-NN plane search (6144 queries against a
    24576-point voxel-filtered local map, with and without the 1.0 m^2 AABB
@@ -24,20 +27,43 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    the whole search as the main path calls it, one empty launch in the
    same loop, the plain version and a library yardstick; the scan-to-map
    corner search (2048 x 65536, pinned to the plain version) is timed too.
-   After phase 7, each of the search's kernels under ``torch.profiler``;
+   After phase 7, each of the search's kernels under ``torch.profiler``.
+   The Jacobi ``eigh`` kernel against its plain version (float64
+   ``torch.linalg.eigh``) at n = 6, 15, 51, 81, 111 and 128 on Wishart,
+   graded and degenerate matrices, and (after phase 17) on the 6x6, 15x15
+   and 111x111 matrices of a real indoor sweep: eigenvalues, reconstruction,
+   orthogonality, order, two launches' bits and the bits of
+   ``eigh_jacobi_reference`` run on the card; the float64 kernel against
+   the plain version; on Wishart and graded matrices each eigenvalue
+   against the float64 kernel's, relative to itself; on the real sweep's
+   matrices what the step makes of them (the degeneracy projector, the
+   pseudo-inverse, J^T J and J^T r of the prior) against what it makes of
+   the plain version's. Its sweeps, its time, the plain version's and
+   ``torch.linalg.eigh``'s in float32, and its bound (~9 n^3 flops).
+   The LU solve kernel against its plain version (``torch.linalg.solve_ex``,
+   cuSOLVER) and float64 ``torch.linalg.solve`` at n = 6, 96, 126 and 128
+   on damped normal equations and (after phase 17) on the 6x6 and 126x126
+   systems of a real indoor sweep: residual, error, two launches' bits,
+   times and bound;
 4. the main path: ``LioPipeline(LioConfig.indoor(), device="cuda")`` in
    float32 over a simulated 90-sweep indoor sequence (the ``cli simulate``
-   defaults), from a cold start through INITED, its INITED sweeps replayed
-   as CUDA graphs (the default on the card, ``models/step_graph.py``).
-   Fails unless it ends INITED with ATE RMSE <= 0.35 m, the KNN kernel ran
-   on the INITED sweeps and graphs replayed. Then a few more sweeps (a
+   defaults), from a cold start through INITED, each consumed INITED sweep
+   one CUDA graph and each skipped one another (the default on the card,
+   ``models/step_graph.py``; the early exits are conditional nodes). Fails
+   unless it ends INITED with ATE RMSE <= 0.35 m, the KNN kernel ran on the
+   INITED sweeps, graphs replayed, no decision was read on the host,
+   ``torch.linalg.eigh`` never ran on the card, the Jacobi kernel ran
+   three times a consumed sweep and the LU kernel in every consumed sweep.
+   Then a few more sweeps (a
    consumed and a skipped one each) under ``torch.profiler``, under the
    CUDA sync-debug mode and under per-stage timers (those on the eager
    step: ``graphs=False`` for that sweep) count launch calls, host syncs
    and stage times. Phase 17 follows it. Then the same 90 sweeps once
    more with the estimator's searches on the plain version (``make_knn5``
-   patched here to ``force_tiled``): its INITED sweep and ATE are printed
-   beside the kernel's, not held;
+   patched here to ``force_tiled``), and once more, eagerly, with the
+   step's ``eigh`` on its plain version (float64 cuSOLVER): their INITED
+   sweep, ATE and each consumed sweep's LM iterations and mini-GN rounds
+   are printed beside the kernels', not held;
 5. the CLI in lio mode, each step a subprocess of ``python -m
    lio_mapping_tpu_torch.cli`` in a temporary directory: ``simulate`` 90
    sweeps, ``run --profile indoor`` with ``--map-out`` and
@@ -123,8 +149,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 17. phase 4's 90 sweeps on a ``graphs=False`` pipeline, run right after
    phase 4: fails unless its poses (bit for bit), INITED sweep, ATE and
    final-state sha256 equal phase 4's graphed run. The same extra sweeps
-   are counted, and both paths' launch calls, host syncs, wall and
-   device-busy ms per consumed sweep and the graphs' memory are printed.
+   are counted, and both paths' launch calls, graph launches, host syncs,
+   wall and device-busy ms per consumed sweep, the graphs' memory, and
+   phase 4's captures and steady mean are printed; fails unless a steady
+   graphed consumed sweep made 0 host syncs and 1 graph launch.
 
 The counters and timers (``timed``, ``count_launches``, ...) are
 ``lio_mapping_tpu_torch/utils/profiling.py``'s; those that know the
@@ -134,8 +162,9 @@ The sweeps of phases 4, 8 and 13 are simulated in worker processes, and
 phases 5 and 11's ``simulate`` subprocesses run side by side, before any
 timed work of their phases.
 
-The line before the last is the kernel table as one JSON object; the last
-line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+The line before the last is the kernel table as one JSON object (``knn``,
+``eigh`` and ``lu_solve``, each with its launches by path); the last line is
+``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
 """
 
@@ -143,6 +172,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -175,8 +205,13 @@ from lio_mapping_tpu_torch.models import odometry as ODO  # noqa: E402
 from lio_mapping_tpu_torch.models import pipeline as PL  # noqa: E402
 from lio_mapping_tpu_torch.models.pipeline import LioPipeline  # noqa: E402
 from lio_mapping_tpu_torch.models.point_processor import process_sweep  # noqa: E402
+from lio_mapping_tpu_torch.models import step_graph as SG  # noqa: E402
+from lio_mapping_tpu_torch.ops import eigh as EIGH  # noqa: E402
+from lio_mapping_tpu_torch.ops import gn as GN  # noqa: E402
 from lio_mapping_tpu_torch.ops import knn as KNN  # noqa: E402
 from lio_mapping_tpu_torch.ops import knn_kernel  # noqa: E402
+from lio_mapping_tpu_torch.ops import lu_solve as LU  # noqa: E402
+from lio_mapping_tpu_torch.ops import marginalization as MG  # noqa: E402
 from lio_mapping_tpu_torch.ops import voxel as VX  # noqa: E402
 from lio_mapping_tpu_torch.utils.profiling import (  # noqa: E402
     count_launches, count_syncs, cuda_ms, device_kernel_ms, timed)
@@ -237,6 +272,27 @@ DEVICE_KERNELS_PER_SEARCH = 2  # bounds, search (csrc/knn.cu; the search merges)
 ONE_THREAD_PER_QUERY_WRAPPER_MS = {"estimator_5nn": 0.9564, "estimator_5nn_gated": 0.6979,
                                    "odometry_surf_1nn": 0.1635, "odometry_corner_1nn": 0.0848}
 F32_EPS = float(np.finfo(np.float32).eps)
+# the Jacobi eigh kernel against float64 torch.linalg.eigh (tests/test_torch_cuda.py):
+# eigenvalues within this many ulps of max |lambda|, reconstruction
+# (relative, Frobenius) and orthogonality within EIGH_VEC_TOL (float32) and
+# EIGH_VEC_TOL64 (the float64 kernel); on Wishart and graded matrices each
+# float32 eigenvalue within EIGH_SELF_REL of the float64 kernel's, relative
+# to itself; on the matrices of a real sweep, what the step makes of the
+# decomposition within EIGH_STEP_TOL of what it makes of the plain
+# version's (tests/test_torch_eigh.py's tolerances, relative to the largest
+# entry)
+EIGH_VAL_ULPS = 64
+EIGH_VEC_TOL = 2e-4
+EIGH_VEC_TOL64 = 1e-12
+EIGH_SELF_REL = 1e-4
+EIGH_STEP_TOL = {"proj": 1e-4, "pinv": 1e-3, "jtj": 64 * F32_EPS, "jtr": 1e-3}
+# the orders the step decomposes: the mini-GN's A^T A, the equilibrated
+# A_mm, the Schur complement (indoor 15 x 7 + 6; outdoor_64 15 x 5 + 6; the
+# tests' small config 15 x 3 + 6) and the kernel's limit
+EIGH_ORDERS = (6, 15, 51, 81, 111, 128)
+# the orders the step solves: the mini-GN's 6x6, the window LM's damped
+# system (outdoor_64 15 x 6 + 6, indoor 15 x 8 + 6) and the kernel's limit
+SOLVE_ORDERS = (6, 96, 126, 128)
 
 
 def log(msg: str):
@@ -517,6 +573,199 @@ def check_case(name, q, qm, db, dbm, k, gate):
     return row, raw
 
 
+def eigh_synthetic(n: int, seed: int):
+    """(name, float32 matrix on the card) cases of order ``n``: a Wishart
+    matrix, a graded one (column scales over six decades: bias-like blocks
+    near 1e12, as the Schur complements carry) and a degenerate one with
+    repeated eigenvalues (half zero, the rest in pairs)."""
+    rng = np.random.default_rng(seed)
+    j = rng.normal(size=(2 * n, n))
+    wish = j.T @ j
+    jg = j * 10.0 ** rng.uniform(0.0, 6.0, size=n)
+    q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    ev = np.zeros(n)
+    ev[n // 2:] = (np.arange(n - n // 2) // 2 + 1).astype(np.float64)
+    return [(f"wishart_{n}", wish), (f"graded_{n}", jg.T @ jg),
+            (f"degenerate_{n}", q @ np.diag(ev) @ q.T)]
+
+
+def _eigh_errors(a, vals, vecs, ref_vals):
+    """(eigenvalue error, scale, reconstruction, orthogonality, ascending)
+    of (vals, vecs) of ``a`` against ``ref_vals`` (float64)."""
+    n = a.shape[-1]
+    a64, v64, w64 = a.double(), vals.double(), vecs.double()
+    scale = float(ref_vals.abs().max())
+    err = float((v64 - ref_vals).abs().max())
+    rec = float(torch.linalg.norm(w64 @ torch.diag(v64) @ w64.T - a64)
+                / max(float(torch.linalg.norm(a64)), 1e-30))
+    orth = float((w64.T @ w64 - torch.eye(n, dtype=torch.float64, device=DEV)).abs().max())
+    return err, scale, rec, orth, bool((vals[1:] >= vals[:-1]).all())
+
+
+def eigh_step_invariants(kind, extra, vals, vecs):
+    """What the step makes of (vals, vecs), in float64: the mini-GN's
+    degeneracy projector (``gn``), the marginalization's pseudo-inverse of
+    the equilibrated block (``pinv``, ``extra`` its scales) or J^T J, J^T r
+    of the prior's factor (``factor``, ``extra`` the right-hand side)."""
+    vals, vecs = vals.double(), vecs.double()
+    if kind == "gn":
+        g = GN.projection_from_eigh(vals, vecs, 100.0)
+        return {"proj": g.proj, "degenerate": bool(g.is_degenerate)}
+    extra = extra.double()
+    if kind == "pinv":
+        return {"pinv": MG.pinv_from_eigh(vals, vecs, extra, MG.EPS)}
+    jac, res = MG.factor_from_eigh(vals, vecs, extra)
+    return {"jtj": jac.T @ jac, "jtr": jac.T @ res}
+
+
+def check_eigh(name, a, step=None):
+    """The Jacobi kernel on one float32 matrix on the card, against its
+    plain version (``eigh_plain``: float64 ``torch.linalg.eigh``); its bits
+    against ``eigh_jacobi_reference`` run on the card (the same operations);
+    the float64 kernel against the plain version; on Wishart and graded
+    matrices each eigenvalue against the float64 kernel's; with ``step``
+    ((kind, extra), a real sweep's matrix) what the step makes of it
+    (:func:`eigh_step_invariants`). Fails outside the stated tolerances.
+    Returns its row: errors, sweeps, times (kernel, plain, library:
+    ``torch.linalg.eigh`` in float32) and bound."""
+    n = a.shape[-1]
+    vals, vecs, sweeps = EIGH.eigh_cuda(a, with_sweeps=True)
+    v2, w2 = EIGH.eigh_cuda(a)
+    pv, pw = EIGH.eigh_plain(a.double())
+    rv, rw, r_sweeps = EIGH.eigh_jacobi_reference(a)
+    torch.cuda.synchronize()
+    sweeps = int(sweeps)
+    deterministic = torch.equal(vals, v2) and torch.equal(vecs, w2)
+    reference_bits = torch.equal(vals, rv) and torch.equal(vecs, rw) and r_sweeps == sweeps
+    err, scale, rec, orth, ascending = _eigh_errors(a, vals, vecs, pv)
+    failed = []
+    if not (err <= EIGH_VAL_ULPS * F32_EPS * scale and rec <= EIGH_VEC_TOL
+            and orth <= EIGH_VEC_TOL and ascending and deterministic and reference_bits):
+        failed.append(f"eigenvalue error {err:.3e} (scale {scale:.3e}), reconstruction "
+                      f"{rec:.3e}, orthogonality {orth:.3e}, ascending {ascending}, "
+                      f"deterministic {deterministic}, reference bits {reference_bits}")
+    row = {"case": name, "n": n, "sweeps": sweeps, "max_abs_err": err, "scale": scale,
+           "rel_err": err / max(scale, 1e-30), "reconstruction": rec, "orthogonality": orth,
+           "reference_bits": reference_bits}
+    if n <= EIGH.MAX_N_F64:
+        v64, w64 = EIGH.eigh_cuda(a.double())
+        err64, _, rec64, orth64, asc64 = _eigh_errors(a, v64, w64, pv)
+        row.update(f64_max_abs_err=err64, f64_reconstruction=rec64, f64_orthogonality=orth64)
+        if not (err64 <= EIGH_VAL_ULPS * 2.0 ** -52 * scale and rec64 <= EIGH_VEC_TOL64
+                and orth64 <= EIGH_VEC_TOL64 and asc64):
+            failed.append(f"float64 kernel: eigenvalue error {err64:.3e}, reconstruction "
+                          f"{rec64:.3e}, orthogonality {orth64:.3e}, ascending {asc64}")
+        if name.split("_")[0] in ("wishart", "graded"):
+            row["self_rel_err"] = float(((vals.double() - v64).abs() / v64.abs()).max())
+            if not row["self_rel_err"] <= EIGH_SELF_REL:
+                failed.append(f"eigenvalues relative to the float64 kernel's "
+                              f"{row['self_rel_err']:.3e}")
+    if step is not None:
+        mine = eigh_step_invariants(*step, vals, vecs)
+        plain = eigh_step_invariants(*step, pv, pw)
+        row["step_rel_err"] = {}
+        for key, value in mine.items():
+            if isinstance(value, bool):
+                row["step_rel_err"][key] = value == plain[key]
+                ok = value == plain[key]
+            else:
+                rel = float((value - plain[key]).abs().max()
+                            / max(float(plain[key].abs().max()), 1e-300))
+                row["step_rel_err"][key] = rel
+                ok = rel <= EIGH_STEP_TOL[key]
+            if not ok:
+                failed.append(f"the step's {key}: {row['step_rel_err'][key]}")
+    if failed:
+        raise AssertionError(f"eigh {name}: " + "; ".join(failed))
+    ms = cuda_ms(lambda: EIGH.eigh_cuda(a), DEV, reps=50)
+    plain_ms = cuda_ms(lambda: EIGH.eigh_plain(a), DEV, reps=20)
+    library_ms = cuda_ms(lambda: torch.linalg.eigh(a), DEV, reps=20)
+    # bound: the matrix read once, the values and vectors written once;
+    # ~9 n^3 flops, what a tridiagonal eigh with vectors needs
+    flops = 9.0 * n ** 3
+    n_bytes = 4.0 * (n * n + n + n * n)
+    t_ops, t_bytes = flops / PEAK_F32_FLOP_S, n_bytes / PEAK_BYTES_S
+    row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log("eigh_check " + json.dumps(row))
+    return row
+
+
+def sweep_eigh_step(n, mats):
+    """(kind, extra) of the step's order-``n`` matrix of a real sweep: the
+    mini-GN's A^T A (6), the equilibrated A_mm (15, scales 1) or the Schur
+    complement (the prior's right-hand side, recorded beside it)."""
+    if n == 6:
+        return "gn", None
+    if n == 15:
+        return "pinv", torch.ones(n, dtype=torch.float64, device=DEV)
+    return "factor", mats["prior"][n][1]
+
+
+@contextlib.contextmanager
+def last_inputs(module, attr: str, last: dict):
+    """Inside the block ``module.attr`` keeps a copy of the last arguments
+    it was given for each order (``last[n]``): the matrices of the sweeps
+    run inside it."""
+    orig = getattr(module, attr)
+
+    def record(*args):
+        last[args[0].shape[-1]] = tuple(a.detach().clone() for a in args)
+        return orig(*args)
+
+    setattr(module, attr, record)
+    try:
+        yield last
+    finally:
+        setattr(module, attr, orig)
+
+
+def check_solve(name, a, b):
+    """The LU kernel against its plain version (``torch.linalg.solve_ex``,
+    cuSOLVER) and float64 ``torch.linalg.solve`` on one float32 system on
+    the card; fails unless its residual is within 64 ulps of |A| |x| and
+    its error within 4x the plain version's. Returns its row."""
+    n = a.shape[-1]
+    x = LU.solve_cuda(a, b)
+    x2 = LU.solve_cuda(a, b)
+    plain = LU.solve_plain(a, b)
+    ref = torch.linalg.solve(a.double(), b.double())
+    torch.cuda.synchronize()
+    a64, x64 = a.double(), x.double()
+    res = float((a64 @ x64 - b.double()).abs().max())
+    scale = float((a64.abs() @ x64.abs()).max())
+    err = float((x64 - ref).abs().max())
+    err_plain = float((plain.double() - ref).abs().max())
+    if not (res <= 64 * F32_EPS * scale and torch.equal(x, x2)
+            and err <= max(4 * err_plain, 64 * F32_EPS * float(ref.abs().max()))):
+        raise AssertionError(f"solve {name}: residual {res:.3e} (scale {scale:.3e}), error "
+                             f"{err:.3e} against the plain version's {err_plain:.3e}")
+    ms = cuda_ms(lambda: LU.solve_cuda(a, b), DEV, reps=50)
+    plain_ms = cuda_ms(lambda: LU.solve_plain(a, b), DEV, reps=50)
+    library_ms = cuda_ms(lambda: torch.linalg.solve(a, b), DEV, reps=20)
+    # bound: A and b read once, x written once; (2/3) n^3 + 2 n^2 flops
+    flops = 2.0 * n ** 3 / 3.0 + 2.0 * n * n
+    n_bytes = 4.0 * (n * n + 2 * n)
+    t_ops, t_bytes = flops / PEAK_F32_FLOP_S, n_bytes / PEAK_BYTES_S
+    row = {"case": name, "n": n, "max_abs_err": err, "plain_err": err_plain, "residual": res,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    log("solve_check " + json.dumps(row))
+    return row
+
+
+def solve_synthetic(n: int, seed: int):
+    """An LM-like damped system of order ``n`` on the card (float32)."""
+    rng = np.random.default_rng(seed)
+    j = rng.normal(size=(3 * n, n)) * 10.0 ** rng.uniform(0.0, 3.0, size=n)
+    a = j.T @ j
+    a += 1e-4 * np.diag(np.diag(a))
+    return (torch.as_tensor(a, dtype=torch.float32, device=DEV),
+            torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=DEV))
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -549,20 +798,49 @@ def feed(pipe, item):
     return pipe.process(xyz, mask, pipe.make_samples(dts, acc, gyr, a0, w0))
 
 
-def drive(pipe, seq, paths, plain=None):
+@contextlib.contextmanager
+def library_eigh_calls(counts: dict):
+    """Count ``torch.linalg.eigh`` calls on CUDA tensors inside the block
+    (``counts["cuda"]``): the port's step makes none (its ``eigh`` is the
+    Jacobi kernel)."""
+    orig = torch.linalg.eigh
+
+    def counted(a, *args, **kwargs):
+        if a.is_cuda:
+            counts["cuda"] = counts.get("cuda", 0) + 1
+        return orig(a, *args, **kwargs)
+
+    torch.linalg.eigh = counted
+    try:
+        yield counts
+    finally:
+        torch.linalg.eigh = orig
+
+
+def drive(pipe, seq, paths, plain=None, eigh_by_path=None, solve_by_path=None):
     """Feed ``seq`` to ``pipe`` sweep by sweep, each synchronised and timed,
-    with the kernel's launches counted by path (``paths``), the plain
-    version's searches by path (``plain``) and the kernel's searches by
-    shape. Returns (per-sweep records, laser poses, launches by path, plain
-    searches by path, searches by shape, run seconds)."""
+    with the KNN kernel's launches counted by path (``paths``; the Jacobi
+    ``eigh`` kernel's and the LU kernel's too, into ``eigh_by_path`` and
+    ``solve_by_path``), the plain version's searches by path (``plain``)
+    and the kernel's searches by shape. Returns (per-sweep records, laser
+    poses, launches by path, plain searches by path, searches by shape, run
+    seconds)."""
     poses, recs = [], []
     by_path, plain_counts, shapes = {}, {}, {}
-    knn_kernel.LAUNCHES = 0
+    # the eigh and solve launches add up by path only where the caller asks
+    # for them (its paths then hold every caller of both kernels)
+    held = eigh_by_path is not None
+    eigh_by_path = {} if eigh_by_path is None else eigh_by_path
+    solve_by_path = {} if solve_by_path is None else solve_by_path
+    knn_kernel.reset_launches()
+    EIGH.reset_launches()
+    LU.reset_launches()
     t_run = time.perf_counter()
     with launches_by_path(by_path, paths), plain_searches(plain_counts, plain or {}), \
-            kernel_shapes(shapes):
+            kernel_shapes(shapes), launches_by_path(eigh_by_path, paths, kind="eigh"), \
+            launches_by_path(solve_by_path, paths, kind="solve"):
         for i, item in enumerate(seq):
-            before = knn_kernel.LAUNCHES
+            before = knn_kernel.launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = feed(pipe, item)
@@ -571,13 +849,17 @@ def drive(pipe, seq, paths, plain=None):
             poses.append(out["laser_pose"])
             recs.append({"i": i, "stage": out["stage"], "consumed": "body_pose" in out,
                          "predicted": bool(out.get("predicted", False)), "s": dt,
-                         "knn": knn_kernel.LAUNCHES - before,
+                         "knn": knn_kernel.launches() - before,
                          "lm": int(out["solver_iterations"]) if "solver_iterations" in out
                          else None,
                          "gn": int(out["newest_rounds"]) if "newest_rounds" in out else None})
     run_s = time.perf_counter() - t_run
-    if sum(by_path.values()) != knn_kernel.LAUNCHES:
-        raise AssertionError(f"launches by path {by_path} do not add up to {knn_kernel.LAUNCHES}")
+    if sum(by_path.values()) != knn_kernel.launches():
+        raise AssertionError(f"launches by path {by_path} do not add up to {knn_kernel.launches()}")
+    for kind, counted, total in (("eigh", eigh_by_path, EIGH.launches()),
+                                 ("solve", solve_by_path, LU.launches())):
+        if held and sum(counted.values()) != total:
+            raise AssertionError(f"{kind} launches by path {counted} do not add up to {total}")
     return recs, poses, by_path, plain_counts, shapes, run_s
 
 
@@ -617,6 +899,7 @@ def summarize(recs, poses, seq, traj, by_path, run_s):
                                                   if r["stage"] == "NOT_INITED"])),
         "lm_iterations_mean": float(np.mean([r["lm"] for r in consumed])) if consumed else None,
         "gn_rounds_mean": float(np.mean([r["gn"] for r in consumed])) if consumed else None,
+        "lm_iterations": [r["lm"] for r in consumed], "gn_rounds": [r["gn"] for r in consumed],
         "run_s": run_s,
     }
 
@@ -676,19 +959,36 @@ def timed_extras(pipe, seq):
     return rows
 
 
-def main_path(seq, traj):
+def main_path(seq, traj, eigh_by_path, solve_by_path):
     """Phase 4 on the default (graphed) pipeline; returns (summary, launches
-    by path, the pipeline, its poses)."""
+    by path, the pipeline, its poses). Also fails if ``torch.linalg.eigh``
+    ran on the card, if a host decision was read or if the Jacobi kernel
+    did not run in the estimator's steps."""
     pipe = LioPipeline(LioConfig.indoor(), device=DEV, dtype=torch.float32)
     if not pipe.graphs:
         raise AssertionError("the pipeline on the card does not default to CUDA graphs")
-    recs, poses, by_path, _, _, run_s = drive(
-        pipe, seq[:N_SWEEPS], {"lio_estimator": (EST, "step_program"),
-                               "lio_odometry": (ODO, "odometry_step")})
+    paths = {"lio_estimator": (EST, "step_program"), "lio_odometry": (ODO, "odometry_step")}
+    with library_eigh_calls({}) as lib_eigh:
+        recs, poses, by_path, _, _, run_s = drive(pipe, seq[:N_SWEEPS], paths,
+                                                  eigh_by_path=eigh_by_path,
+                                                  solve_by_path=solve_by_path)
     summary = summarize(recs, poses, seq[:N_SWEEPS], traj, by_path, run_s)
     summary["state_sha256"] = cli._state_digest(pipe)
     summary["graphs"] = {**pipe._step_graphs.stats, **pipe._step_graphs.memory_bytes()}
+    summary["eigh_launches_by_path"] = dict(eigh_by_path)
+    summary["solve_launches_by_path"] = dict(solve_by_path)
+    summary["torch_linalg_eigh_cuda_calls"] = lib_eigh.get("cuda", 0)
     log("main_path " + json.dumps(summary))
+    if summary["torch_linalg_eigh_cuda_calls"]:
+        raise AssertionError("torch.linalg.eigh ran on the card in the main path")
+    if summary["graphs"]["decisions"]:
+        raise AssertionError("the graphed step read a decision on the host")
+    if eigh_by_path.get("lio_estimator", 0) < 3 * summary["consumed_inited_sweeps"]:
+        raise AssertionError(f"the Jacobi eigh kernel did not run 3 times a consumed sweep: "
+                             f"{eigh_by_path}")
+    if solve_by_path.get("lio_estimator", 0) < 2 * summary["consumed_inited_sweeps"]:
+        raise AssertionError(f"the LU kernel did not run in every consumed sweep: "
+                             f"{solve_by_path}")
     if summary["stage"] != "INITED":
         raise AssertionError(f"the pipeline ended {summary['stage']}, not INITED")
     if not summary["ate_rmse_m"] <= ATE_LIMIT:
@@ -714,9 +1014,14 @@ def eager_replay(seq, traj, workdir, graphed, g_summary, g_poses):
     process, then counted (launches, syncs, stage times); printed per
     consumed sweep beside the graphs' memory."""
     pipe = LioPipeline(LioConfig.indoor(), device=DEV, dtype=torch.float32, graphs=False)
-    recs, poses, by_path, _, _, run_s = drive(
-        pipe, seq[:N_SWEEPS], {"lio_estimator_eager": (EST, "step_program"),
-                               "lio_odometry_eager": (ODO, "odometry_step")})
+    eigh_by_path, solve_by_path = {}, {}
+    matrices = {"eigh": {}, "solve": {}, "prior": {}}
+    with last_inputs(EIGH, "eigh", matrices["eigh"]), last_inputs(LU, "solve", matrices["solve"]), \
+            last_inputs(MG, "factorize_prior", matrices["prior"]):
+        recs, poses, by_path, _, _, run_s = drive(
+            pipe, seq[:N_SWEEPS], {"lio_estimator_eager": (EST, "step_program"),
+                                   "lio_odometry_eager": (ODO, "odometry_step")},
+            eigh_by_path=eigh_by_path, solve_by_path=solve_by_path)
     summary = summarize(recs, poses, seq[:N_SWEEPS], traj, by_path, run_s)
     summary["state_sha256"] = cli._state_digest(pipe)
     same = {"poses": _same_poses(poses, g_poses),
@@ -761,39 +1066,59 @@ def eager_replay(seq, traj, workdir, graphed, g_summary, g_poses):
                     "steady_consumed_ms_mean"]}
 
     row = {"graphed": {**per_consumed("graphed"),
-                       "graphs_memory_bytes": graphed._step_graphs.memory_bytes()},
+                       "graphs_memory_bytes": graphed._step_graphs.memory_bytes(),
+                       "phase4_captures": g_summary["graphs"]["captures"],
+                       "phase4_steady_consumed_ms_mean": g_summary["steady_consumed_ms_mean"]},
            "eager": per_consumed("eager")}
     log("per_consumed_sweep_paths " + json.dumps(row))
-    return row, by_path
+    g_row = row["graphed"]
+    if g_row["host_syncs"] != 0 or g_row["graph_launches"] != 1:
+        raise AssertionError(f"a steady graphed consumed sweep made {g_row['host_syncs']} host "
+                             f"syncs and {g_row['graph_launches']} graph launches (0 and 1 "
+                             "expected)")
+    return row, by_path, {"eigh": eigh_by_path, "solve": solve_by_path}, matrices
 
 
-def plain_closed_loop(seq, traj, kernel_summary):
-    """Phase 4's sequence once more with every estimator search on the plain
-    version (``make_knn5`` patched to ``force_tiled``): the closed loop
-    without the kernel, printed beside the kernel's, not held."""
-    orig = EST.make_knn5
+def plain_closed_loop(seq, traj, kernel_summary, part: str):
+    """Phase 4's sequence once more with one kernel's calls on its plain
+    version: ``knn``, every estimator search (``make_knn5`` patched to
+    ``force_tiled``), or ``eigh``, the step's three decompositions
+    (``ops/eigh.eigh`` patched to ``eigh_plain``: float64 cuSOLVER, whose
+    status check reads back, so that pipeline runs eagerly). The closed
+    loop without the kernel, printed beside the kernel's, not held."""
+    if part == "knn":
+        module, attr = EST, "make_knn5"
+        orig = EST.make_knn5
 
-    def tiled(map_xyz, map_mask, cfg, axis=None, force_tiled=False):
-        return orig(map_xyz, map_mask, cfg, axis=axis, force_tiled=True)
-
-    EST.make_knn5 = tiled
+        def plain_fn(map_xyz, map_mask, cfg, axis=None, force_tiled=False):
+            return orig(map_xyz, map_mask, cfg, axis=axis, force_tiled=True)
+    else:
+        module, attr, plain_fn = EIGH, "eigh", EIGH.eigh_plain
+    orig_attr = getattr(module, attr)
+    est_path = f"lio_estimator_plain_{part}"
+    setattr(module, attr, plain_fn)
     try:
-        pipe = LioPipeline(LioConfig.indoor(), device=DEV, dtype=torch.float32)
+        pipe = LioPipeline(LioConfig.indoor(), device=DEV, dtype=torch.float32,
+                           graphs=part == "knn")
         recs, poses, by_path, plain, _, run_s = drive(
-            pipe, seq[:N_SWEEPS], {"lio_estimator_plain_knn": (EST, "step_program"),
-                                   "lio_odometry_plain_knn": (ODO, "odometry_step")},
-            plain={"lio_estimator_plain_knn": (EST, "step_program")})
+            pipe, seq[:N_SWEEPS], {est_path: (EST, "step_program"),
+                                   f"lio_odometry_plain_{part}": (ODO, "odometry_step")},
+            plain={est_path: (EST, "step_program")} if part == "knn" else None)
     finally:
-        EST.make_knn5 = orig
+        setattr(module, attr, orig_attr)
     summary = summarize(recs, poses, seq[:N_SWEEPS], traj, by_path, run_s)
     row = {"stage": summary["stage"], "inited_at_sweep": summary["inited_at_sweep"],
            "ate_rmse_m": summary["ate_rmse_m"],
            "kernel_inited_at_sweep": kernel_summary["inited_at_sweep"],
            "kernel_ate_rmse_m": kernel_summary["ate_rmse_m"],
-           "estimator_kernel_launches": by_path.get("lio_estimator_plain_knn", 0),
-           "estimator_plain_searches": plain.get("lio_estimator_plain_knn", 0),
+           "lm_iterations": summary["lm_iterations"], "gn_rounds": summary["gn_rounds"],
+           "kernel_lm_iterations": kernel_summary["lm_iterations"],
+           "kernel_gn_rounds": kernel_summary["gn_rounds"],
            "steady_consumed_ms_mean": summary["steady_consumed_ms_mean"], "run_s": run_s}
-    log("plain_closed_loop " + json.dumps(row))
+    if part == "knn":
+        row.update(estimator_kernel_launches=by_path.get(est_path, 0),
+                   estimator_plain_searches=plain.get(est_path, 0))
+    log(f"plain_{part}_closed_loop " + json.dumps(row))
     return row
 
 
@@ -1009,7 +1334,7 @@ def cli_loam(workdir):
     counted by path), then ``evaluate``."""
     p = lambda name: os.path.join(workdir, name)  # noqa: E731
     by_path = {}
-    knn_kernel.LAUNCHES = 0
+    knn_kernel.reset_launches()
     t0 = time.perf_counter()
     with launches_by_path(by_path, {"loam_odometry": (ODO, "odometry_step"),
                                     "loam_scan_to_map": (MAP, "optimize_to_map")}):
@@ -1017,7 +1342,7 @@ def cli_loam(workdir):
                             "--mode", "loam", "--out", p("traj_loam.tum"),
                             "--map-out", p("map_loam.pcd"), "--stats-json", p("stats_loam.json"))
     run_s = time.perf_counter() - t0
-    launches = knn_kernel.LAUNCHES
+    launches = knn_kernel.launches()
     ev = cli_inprocess("evaluate", "--est", p("traj_loam.tum"), "--gt", p("gt.tum"))
     with open(p("stats_loam.json")) as f:
         stats = json.load(f)
@@ -1035,23 +1360,51 @@ def cli_loam(workdir):
     return row, by_path
 
 
+@contextlib.contextmanager
+def counted_calls(calls: dict, targets: dict):
+    """Inside the block each call of a (module or class, function) of
+    ``targets[name]`` adds one to ``calls[name]``."""
+    originals = [(owner, attr, getattr(owner, attr)) for pairs in targets.values()
+                 for owner, attr in pairs]
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return run
+
+    for name, pairs in targets.items():
+        for owner, attr in pairs:
+            setattr(owner, attr, wrap(name, getattr(owner, attr)))
+    try:
+        yield calls
+    finally:
+        for owner, attr, fn in originals:
+            setattr(owner, attr, fn)
+
+
 def cli_4d(workdir):
     """Phase 10: ``run --enable-4d --out-4d --timing`` on phase 5's log in
     this process (launches and calls counted by path), ``evaluate`` of the
     LIO and the 4D trajectory."""
     p = lambda name: os.path.join(workdir, name)  # noqa: E731
     by_path, calls = {}, {}
-    knn_kernel.LAUNCHES = 0
+    knn_kernel.reset_launches()
     t0 = time.perf_counter()
+    # an estimator step is a call of the graphed step (one graph replay) or
+    # of the eager one
     with launches_by_path(by_path, {"map_builder": (MB, "map_builder_step"),
                                     "lio_estimator_4d": (EST, "step_program"),
-                                    "lio_odometry_4d": (ODO, "odometry_step")}, calls):
+                                    "lio_odometry_4d": (ODO, "odometry_step")}, calls), \
+            counted_calls(calls, {"estimator_steps": [(PL.LioPipeline, "_graphed_step"),
+                                                      (EST, "lio_step_impl")]}):
         out = cli_inprocess("run", "--log", p("seq.liol"), "--profile", "indoor",
                             "--out", p("traj_4d_lio.tum"), "--enable-4d", "--out-4d",
                             p("traj_4d.tum"), "--timing")
     run_s = time.perf_counter() - t0
-    if sum(by_path.values()) != knn_kernel.LAUNCHES:
-        raise AssertionError(f"launches by path {by_path} do not add up to {knn_kernel.LAUNCHES}")
+    if sum(by_path.values()) != knn_kernel.launches():
+        raise AssertionError(f"launches by path {by_path} do not add up to {knn_kernel.launches()}")
     ate = float(_grab(r"ATE RMSE: ([0-9.]+) m", cli_inprocess(
         "evaluate", "--est", p("traj_4d_lio.tum"), "--gt", p("gt.tum")), "ATE"))
     ate_4d = float(_grab(r"ATE RMSE: ([0-9.]+) m", cli_inprocess(
@@ -1063,7 +1416,7 @@ def cli_4d(workdir):
     row = {"ate_rmse_m": ate, "ate_4d_rmse_m": ate_4d,
            "ate_4d_limit_m": max(2 * ate, FOUR_D_FLOOR), "poses_4d": len(t_4d),
            "builder_calls": calls.get("map_builder", 0),
-           "estimator_steps": calls.get("lio_estimator_4d", 0),
+           "estimator_steps": calls.get("estimator_steps", 0),
            "max_dp_vs_phase5_m": float(np.max(np.abs(p_lio - p_sp))) if len(t_lio) == len(t_sp)
            else None,
            "min_abs_qdot_vs_phase5": float(np.min(np.abs(np.sum(q_lio * q_sp, axis=-1))))
@@ -1257,7 +1610,7 @@ def rs32_path(workdir, pool):
         raise AssertionError("the converted RS-32 log's rings differ from the bag's")
 
     by_path, stages = {}, []
-    knn_kernel.LAUNCHES = 0
+    knn_kernel.reset_launches()
     t0 = time.perf_counter()
     with launches_by_path(by_path, {"rs32_estimator": (EST, "step_program"),
                                     "rs32_odometry": (ODO, "odometry_step")}), \
@@ -1265,8 +1618,8 @@ def rs32_path(workdir, pool):
         out = cli_inprocess("run", "--log", p("rs32.liol"), "--config", p("rs32.yaml"),
                             "--out", p("traj_rs32.tum"), "--stats-json", p("stats_rs32.json"))
     run_s = time.perf_counter() - t0
-    if sum(by_path.values()) != knn_kernel.LAUNCHES:
-        raise AssertionError(f"launches by path {by_path} do not add up to {knn_kernel.LAUNCHES}")
+    if sum(by_path.values()) != knn_kernel.launches():
+        raise AssertionError(f"launches by path {by_path} do not add up to {knn_kernel.launches()}")
     ev = cli_inprocess("evaluate", "--est", p("traj_rs32.tum"), "--gt", p("gt_rs32.tum"))
     with open(p("stats_rs32.json")) as f:
         stats = json.load(f)
@@ -1327,16 +1680,16 @@ def viz_path(workdir):
         raise AssertionError(f"viz-normals normals are not unit: {np.max(np.abs(norms - 1))}")
 
     cfg = LioConfig.indoor()
-    knn_kernel.LAUNCHES = 0
+    knn_kernel.reset_launches()
     t0 = time.perf_counter()
     view = cli.normals_view(p("seq.liol"), p("gt.tum"), cfg, frames=VIZ_FRAMES, device=DEV)
     kernel_s = time.perf_counter() - t0
-    launches = knn_kernel.LAUNCHES
+    launches = knn_kernel.launches()
     t0 = time.perf_counter()
     plain = cli.normals_view(p("seq.liol"), p("gt.tum"), cfg, frames=VIZ_FRAMES, device=DEV,
                              force_tiled=True)
     plain_s = time.perf_counter() - t0
-    if knn_kernel.LAUNCHES != launches:
+    if knn_kernel.launches() != launches:
         raise AssertionError("the forced plain search launched the kernel")
     if not (np.array_equal(view.xyz, plain.xyz) and np.array_equal(view.map_xyz, plain.map_xyz)):
         raise AssertionError("normals_view's queries or local map differ between the searches")
@@ -1588,14 +1941,22 @@ def main():
     log(f"device {name} x{torch.cuda.device_count()} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    # the kernels' sources, one nvcc each, all started together
     t0 = time.perf_counter()
-    path = knn_kernel.build()
+    builders = {"knn.cu": knn_kernel.build, "eigh.cu": EIGH.build, "lu_solve.cu": LU.build,
+                "graph_if.cu": SG.build_if_nodes}
+    with ThreadPoolExecutor(len(builders)) as ex:
+        built = {src: ex.submit(fn) for src, fn in builders.items()}
+        built = {src: f.result() for src, f in built.items()}
     knn_kernel._load()
-    log(f"build knn.cu -> {os.path.relpath(path)} in {time.perf_counter() - t0:.2f} s")
-    ptxas = path.with_suffix(".log")
-    for line in ptxas.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas " + line.strip())
+    EIGH._load()
+    LU._load()
+    log(f"built {', '.join(built)} in {time.perf_counter() - t0:.2f} s")
+    for src, path in built.items():
+        log(f"build {src} -> {os.path.relpath(path)}")
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {src} " + line.strip())
 
     traj = sim_trajectory()
     cfg = LioConfig.indoor()
@@ -1604,6 +1965,9 @@ def main():
     rows = [row for row, _ in checked]
     max_err = max(r["max_abs_err"] for r in rows)
     corner_row = corner_plain(*corner)
+    eigh_rows = [check_eigh(case, torch.as_tensor(m, dtype=torch.float32, device=DEV))
+                 for n in EIGH_ORDERS for case, m in eigh_synthetic(n, n)]
+    solve_rows = [check_solve(f"damped_{n}", *solve_synthetic(n, n)) for n in SOLVE_ORDERS]
 
     # sweeps are simulated in worker processes (a fresh interpreter each, so
     # nothing of this process's CUDA state is inherited)
@@ -1612,10 +1976,21 @@ def main():
         t0 = time.perf_counter()
         seq = simulate_sequence(pool, traj, N_SWEEPS + N_EXTRA)
         log(f"simulated {len(seq)} sweeps in {time.perf_counter() - t0:.1f} s")
-        summary, lio_paths, graphed, g_poses = main_path(seq, traj)
-        _, eager_paths = eager_replay(seq, traj, workdir, graphed, summary, g_poses)
+        eigh_paths, solve_paths = {}, {}
+        summary, lio_paths, graphed, g_poses = main_path(seq, traj, eigh_paths, solve_paths)
+        _, eager_paths, eager_other, sweep_mats = eager_replay(
+            seq, traj, workdir, graphed, summary, g_poses)
+        eigh_paths.update(eager_other["eigh"])
+        solve_paths.update(eager_other["solve"])
         del graphed
-        plain_loop = plain_closed_loop(seq, traj, summary)
+        # phase 3's eigh and solve parts on the matrices of a real sweep (the
+        # last consumed sweep's of phase 17)
+        eigh_rows += [check_eigh(f"sweep_{n}", args[0], sweep_eigh_step(n, sweep_mats))
+                      for n, args in sorted(sweep_mats["eigh"].items())]
+        solve_rows += [check_solve(f"sweep_{n}", *args)
+                       for n, args in sorted(sweep_mats["solve"].items())]
+        plain_loop = plain_closed_loop(seq, traj, summary, "knn")
+        plain_eigh_loop = plain_closed_loop(seq, traj, summary, "eigh")
 
         # phases 5 and 11's logs, simulated side by side
         simulating = [cli_start(workdir, "simulate", "--out", "seq.liol", "--gt-out", "gt.tum",
@@ -1679,7 +2054,38 @@ def main():
         "outdoor64": {"shape": [o64_row["Q"], o64_row["M"], o64_row["k"]], **times(o64_row)},
         **{tag: {"shape": [r["Q"], r["M"], r["k"]], **times(r)} for tag, r in mesh_rows.items()},
         "plain_closed_loop": {k: plain_loop[k] for k in ("inited_at_sweep", "ate_rmse_m")},
+        "plain_eigh_closed_loop": {k: plain_eigh_loop[k] for k in ("inited_at_sweep",
+                                                                   "ate_rmse_m")},
     }]
+    # eigh: the indoor prior's Schur complement of a real sweep is the main
+    # shape; every order checked beside it
+    e_main = next(r for r in eigh_rows if r["case"] == "sweep_111")
+    kernels.append({
+        "name": "eigh", "route": "cuda", "source": "lio_mapping_tpu_torch/csrc/eigh.cu",
+        "replaces": "lio_mapping_tpu/ops/gn.py:31, lio_mapping_tpu/ops/marginalization.py:119 "
+                    "and :155 (jnp.linalg.eigh inside the jitted step; XLA, not Pallas)",
+        "launches": sum(eigh_paths.values()), "launches_by_path": eigh_paths,
+        "max_abs_err": e_main["max_abs_err"],
+        **{k: e_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "sweeps": e_main["sweeps"],
+        "by_case": {r["case"]: {k: r[k] for k in ("n", "sweeps", "rel_err", "ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "library_ms")}
+                    for r in eigh_rows},
+    })
+    # solve: the indoor LM's damped system of a real sweep is the main shape
+    s_main = next(r for r in solve_rows if r["case"] == "sweep_126")
+    kernels.append({
+        "name": "lu_solve", "route": "cuda", "source": "lio_mapping_tpu_torch/csrc/lu_solve.cu",
+        "replaces": "lio_mapping_tpu/ops/solver.py:397, lio_mapping_tpu/models/estimator.py:369 "
+                    "(jnp.linalg.solve inside the jitted step; XLA, not Pallas)",
+        "launches": sum(solve_paths.values()), "launches_by_path": solve_paths,
+        "max_abs_err": s_main["max_abs_err"],
+        **{k: s_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "by_case": {r["case"]: {k: r[k] for k in ("n", "max_abs_err", "plain_err", "ms",
+                                                  "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms")}
+                    for r in solve_rows},
+    })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -283,6 +283,7 @@ def _replay(args, mesh=None):
     from .io.evaluation import load_tum, save_tum
     from .models import pipeline as PL
     from .ops import knn_kernel
+    from .utils.profiling import SteadySyncs
     from .utils.timing import StageTimer, device_trace, dispatch_floor_ms
 
     cfg = _profile(args.profile, args.config)
@@ -307,7 +308,12 @@ def _replay(args, mesh=None):
     global_map = (native.GlobalVoxelMap(cfg.mapping.map_filter_size)
                   if args.map_out and writer else None)
     timer = StageTimer(enabled=args.timing, sync=args.timing)
-    knn_launches0 = knn_kernel.LAUNCHES
+    knn_launches0 = knn_kernel.launches()
+    # host syncs of the steady INITED sweeps (the pipeline's calls only:
+    # flushes, checkpoints and the 4D builder read back on purpose); the
+    # mesh's eager step decides on the host, so it is not counted there
+    steady = (SteadySyncs(device) if args.stats_json and writer and args.mode == "lio"
+              and mesh is None else None)
 
     # the 4D map builder consumes the estimator's output
     # (launch/map_4D_indoor.launch:9-15)
@@ -379,20 +385,28 @@ def _replay(args, mesh=None):
         if self_rot is not None:
             with timer.stage("self_filter"):
                 mask = self_filter(xyz, mask)
-        k0 = knn_kernel.LAUNCHES
-        with timer.stage("pipeline", sync_on=device):
+        # the mesh's estimator steps run eagerly: their launches are counted
+        # on the host (a graphed step's are read from the device at the end)
+        k0 = knn_kernel.launches() if mesh is not None else 0
+        def process():
             if args.mode == "loam":
-                out = pipe.process(xyz, mask, ring_ids=ring)
-            elif pf is not None:
-                out = pipe.process(pf, None, samples)  # cloud already on its way
+                return pipe.process(xyz, mask, ring_ids=ring)
+            if pf is not None:
+                return pipe.process(pf, None, samples)  # cloud already on its way
+            return pipe.process(xyz, mask, samples, ring_ids=ring)
+
+        with timer.stage("pipeline", sync_on=device):
+            if steady is not None and pipe.stage == "INITED":
+                out = steady.step(process, pipe)
             else:
-                out = pipe.process(xyz, mask, samples, ring_ids=ring)
+                out = process()
         pose = out.get("laser_pose")
         if pose is None:
             return
         if "n_features" in out:  # an estimator step ran
             stats["n_consumed"] += 1
-            stats["est_launches"] += knn_kernel.LAUNCHES - k0
+            if mesh is not None:
+                stats["est_launches"] += knn_kernel.launches() - k0
         if mb_state is not None and out.get("stage") == "INITED" \
                 and "corner_cloud" in out and not out.get("predicted"):
             with timer.stage("map_builder", sync_on=device):
@@ -529,7 +543,7 @@ def _replay(args, mesh=None):
     loop_wall = time.perf_counter() - loop_t0 - probe_cost
     ranks = None
     if mesh is not None and args.mode == "lio":
-        ranks = _mesh_report(mesh, pipe, knn_kernel.LAUNCHES - knn_launches0, stats, loop_wall)
+        ranks = _mesh_report(mesh, pipe, knn_kernel.launches() - knn_launches0, stats, loop_wall)
     if not writer:
         return 0
 
@@ -557,7 +571,9 @@ def _replay(args, mesh=None):
             "t_flush_s": round(stats["t_flush"], 4),
             "t_ingest_s": round(max(0.0, loop_wall - stats["t_step"] - stats["t_flush"]), 4),
             "dispatch_floor_ms": round(disp_ms, 3) if disp_ms else None,
-            "clean_stream": bool(disp_ms and disp_ms < 0.5),
+            # no host sync in any steady INITED sweep (on the card; the CPU
+            # counts none and says False)
+            "clean_stream": bool(steady is not None and steady.clean),
             "mode": args.mode,
             "stage": pipe.stage if args.mode == "lio" else "LOAM",
             "resumed": bool(args.resume),
@@ -608,7 +624,7 @@ def _replay(args, mesh=None):
         print(f"wrote checkpoint to {args.checkpoint_out}")
     if args.timing:
         print(timer.report())
-        print(f"knn kernel launches: {knn_kernel.LAUNCHES - knn_launches0}")
+        print(f"knn kernel launches: {knn_kernel.launches() - knn_launches0}")
     return 0
 
 

@@ -20,14 +20,16 @@ The reference's variants are flags of ``EstimatorConfig``:
 * ``cutoff_deskew``: the step takes the clouds as they come, without the
   IMU deskew.
 
-The step is written as ``step_program``: stretches of device work cut at
-the host reads that remain, the mini-GN's and the LM's early exits (one
-device flag read per round but the last possible one) and the three
-``eigh`` calls. ``lio_step_impl`` runs it eagerly (``EagerRun``);
-``models/step_graph.StepGraphs`` replays each stretch as a CUDA graph,
-the port's counterpart of the reference's one jitted program per sweep.
-The surf searches go through ``ops.knn.knn``, which launches the CUDA
-kernel on the card.
+The step is written as ``step_program``: stretches of device work and,
+for the mini-GN's and the LM's early exits, conditional bodies (a round or
+an iteration runs where its device flag says the loop has not stopped, as
+the reference's ``lax.while_loop`` decides). ``lio_step_impl`` runs it
+eagerly (``EagerRun``: the flags read on the host);
+``models/step_graph.StepGraphs`` captures the whole program as one CUDA
+graph whose bodies are conditional nodes, the port's counterpart of the
+reference's one jitted program per sweep. The three ``eigh`` run on the
+port's Jacobi kernel (``ops/eigh.py``) and the surf searches go through
+``ops.knn.knn``, which launches the CUDA KNN kernel on the card.
 
 Distributed (``axis``, a ``parallel.multihost.Mesh``; see
 ``parallel/lio_dist.py``): every rank runs the step on the same inputs and
@@ -62,7 +64,7 @@ from ..parallel import map_sharded as MS
 from ..parallel import multihost as MH
 from ..utils import quaternion as quat
 from ..utils.se3 import Pose
-from ..utils.tree import tree_map
+from ..utils.tree import tree_leaves, tree_map
 
 
 class EstimatorState(NamedTuple):
@@ -326,7 +328,7 @@ def _calculate_laser_odom(assoc, stacks, local_q, local_t, cfg: LioConfig,
     equations are summed over the ranks. Returns (lq, lt, pts, coeff_acc
     (n_iters, F, 4), ok_acc (n_iters, F), n_exec) with n_exec a Python
     int. One host sync per round but the last; the step itself runs the
-    same rounds as stretches of :func:`step_program`."""
+    same rounds as conditional bodies of :func:`step_program`."""
     pts, coeff_acc, ok_acc = _gn_buffers(stacks, n_iters, cfg, local_t)
     lq, lt = local_q, local_t
     proj = degen = None
@@ -436,26 +438,52 @@ def local_map(st: EstimatorState, cfg: LioConfig):
 _TRUNCATE_STAGE = None
 
 
+def commit(v: dict, new: dict):
+    """A conditional body's results into the values it updates: each leaf
+    of ``new[name]`` copied into the same leaf of ``v[name]``, which must
+    exist with the same shape and type (a CUDA graph's body writes into
+    memory made before it; a skipped body leaves it as it was)."""
+    for name, value in new.items():
+        if name not in v:
+            raise KeyError(f"{name!r}: a conditional body may only update values made "
+                           "before it")
+        old, fresh = tree_leaves(v[name]), tree_leaves(value)
+        if len(old) != len(fresh):
+            raise ValueError(f"{name!r}: the body changes the value's structure")
+        for dst, src in zip(old, fresh):
+            if not torch.is_tensor(dst):
+                if dst != src:
+                    raise ValueError(f"{name!r}: the body changes a constant")
+                continue
+            if dst.shape != src.shape or dst.dtype != src.dtype:
+                raise ValueError(f"{name!r}: {tuple(src.shape)} {src.dtype} into "
+                                 f"{tuple(dst.shape)} {dst.dtype}")
+            dst.copy_(src)
+
+
 class EagerRun:
-    """Runs :func:`step_program` as one eager call: each stretch on the spot,
-    each cut's eigendecomposition and each decision where it falls (a host
-    sync at each decision and each ``eigh``). ``models/step_graph.py``
-    replays the stretches as CUDA graphs instead."""
+    """Runs :func:`step_program` as one eager call: each stretch on the
+    spot, each conditional body after one host read of its flag (a host
+    sync). A loop's flag stays set once set, so after it reads set the
+    loop's later bodies are skipped without a read. ``models/step_graph.py``
+    captures the program as one CUDA graph instead, the flags read by
+    conditional nodes on the device."""
+
+    def __init__(self):
+        self._stopped = set()
 
     @staticmethod
     def stretch(key, fn, v):
         v.update(fn(v))
 
-    @staticmethod
-    def cut(key, fn, v):
-        v.update(fn(v))
-
-    @staticmethod
-    def decide(v, name) -> bool:
-        return bool(v[name])
-
-
-EAGER = EagerRun()
+    def when(self, v, stop: str, key, fn):
+        """Run the body ``fn`` unless the device flag ``v[stop]`` is set."""
+        if stop in self._stopped:
+            return
+        if bool(v[stop]):  # a host sync
+            self._stopped.add(stop)
+            return
+        commit(v, fn(v))
 
 
 def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSamples,
@@ -465,7 +493,15 @@ def lio_step_impl(state: EstimatorState, surf_cloud: Cloud, samples: PI.ImuSampl
     eagerly; ``map_shard`` without ``axis`` changes nothing."""
     v = {"state": state, "surf_cloud": surf_cloud, "corner_cloud": corner_cloud,
          "samples": samples}
-    return step_program(EAGER, v, cfg, axis=axis, map_shard=map_shard)
+    return step_program(EagerRun(), v, cfg, extrinsic_prior(cfg), axis=axis, map_shard=map_shard)
+
+
+def extrinsic_prior(cfg: LioConfig):
+    """The extrinsic prior's values (q_lb, t_lb) as host floats, or None
+    without the prior factor; the step makes them on the device by fills."""
+    if not cfg.estimator.prior_factor:
+        return None
+    return tuple(x.tolist() for x in cfg.extrinsic_lb())
 
 
 def _shard_rows(arr, mask, axis: MH.Mesh):
@@ -500,66 +536,51 @@ def _frame_stacks(st: EstimatorState, i: int, cfg: LioConfig, axis: MH.Mesh):
     return (sx, sm)
 
 
-def step_program(run, v: dict, cfg: LioConfig, axis: MH.Mesh = None, map_shard: bool = False,
-                 front=None, front_key: tuple = ()) -> Tuple[EstimatorState, dict]:
-    """The estimator step as stretches of device work cut at its host reads:
-    each mini-GN round's exit test, each LM iteration's ``done``, the
-    ``eigh`` of the mini-GN's degeneracy projection (round 0) and the two of
-    the marginalization. ``run`` (:class:`EagerRun`, or
-    ``step_graph.StepGraphs``) runs each stretch (``run.stretch(key, fn,
-    v)``: ``fn`` reads the values of ``v`` and returns the new ones), each
-    cut (``run.cut``) and each decision (``run.decide``); a stretch's key
-    names what sets its shapes and branches, as ``jax.jit``'s static
-    arguments do.
+def step_program(run, v: dict, cfg: LioConfig, ex_prior, axis: MH.Mesh = None,
+                 map_shard: bool = False, front=None) -> Tuple[EstimatorState, dict]:
+    """The estimator step as stretches of device work and conditional
+    bodies. ``run`` (:class:`EagerRun`, or ``step_graph.StepGraphs``) runs
+    each stretch (``run.stretch(key, fn, v)``: ``fn`` reads the values of
+    ``v`` and returns the new ones), each body (``run.when(v, stop, key,
+    fn)``: ``fn`` runs unless the device flag ``v[stop]`` is set, and its
+    results are copied into the values it updates, :func:`commit`). The
+    mini-GN's rounds 1 .. n-1 run under ``~gn_converged`` and the LM's
+    iterations 2 .. n under ``~lm_done``; both flags stay set once set (a
+    skipped body leaves them), so the flat sequence of bodies is the
+    reference's ``while_loop``. Their counts are device counters
+    (``gn_rounds``, the LM carry's ``iters``): the outputs
+    ``newest_rounds`` and ``solver_iterations``. Nothing is read back.
 
     ``v`` holds ``state``, and either ``samples``, ``surf_cloud`` and
     ``corner_cloud`` or, with ``front`` (v -> (surf cloud, corner cloud or
     None, samples, extra outputs)), what ``front`` reads: the graphed
-    pipeline runs its front end inside the first stretch, whose key ends
-    with ``front_key``. Returns (new state, outputs)."""
+    pipeline runs its front end inside the program. ``ex_prior`` is
+    :func:`extrinsic_prior` of ``cfg``, made on the host before the
+    program. Returns (new state, outputs)."""
     e = cfg.estimator
     n_ref = e.newest_refine_iters if e.imu_factor else 0
     max_it = e.max_solver_iterations
 
-    run.stretch(("head",) + front_key, lambda v: _st_head(v, cfg, axis, map_shard, n_ref, front),
-                v)
+    run.stretch(("head",), lambda v: _st_head(v, cfg, axis, map_shard, n_ref, front), v)
     if "truncated" in v:
         return v["st"], v["truncated"]
-    n_exec = 0
     if n_ref > 0:
-        run.cut(("gn_eigh",), _cut_gn_eigh, v)
         run.stretch(("gn", 0), lambda v: _st_gn(v, cfg, axis, map_shard, 0), v)
-        n_exec = 1
-        while n_exec < n_ref and not run.decide(v, "gn_converged"):  # a host sync
-            it = n_exec
-            run.stretch(("gn", it), lambda v: _st_gn(v, cfg, axis, map_shard, it), v)
-            n_exec += 1
-    # the extrinsic prior's values on the host: made on the device by fills
-    ex_prior = None
-    if e.prior_factor:
-        ex_prior = tuple(x.tolist() for x in cfg.extrinsic_lb())
-    run.stretch(("post", n_exec),
-                lambda v: _st_post(v, cfg, axis, map_shard, n_ref, n_exec, ex_prior), v)
+        for it in range(1, n_ref):
+            run.when(v, "gn_converged", ("gn", it),
+                     lambda v, it=it: _st_gn(v, cfg, axis, map_shard, it))
+    run.stretch(("post",), lambda v: _st_post(v, cfg, axis, map_shard, n_ref, ex_prior), v)
     if "truncated" in v:
         return v["st"], v["truncated"]
-    it = 0
-    while it < max_it:
-        run.stretch(("lm", n_exec), lambda v: _st_lm(v, cfg, axis), v)
-        it += 1
-        if it < max_it and run.decide(v, "lm_done"):  # a host sync
-            break
+    if max_it > 0:
+        run.stretch(("lm", 0), lambda v: _st_lm(v, cfg, axis), v)
+        for it in range(1, max_it):
+            run.when(v, "lm_done", ("lm", it), lambda v: _st_lm(v, cfg, axis))
     if _TRUNCATE_STAGE == "solve":
         return v["st"], {"q": v["lm"].x.q}
-    run.stretch(("tail", n_exec), lambda v: _st_tail(v, cfg, axis), v)
-    run.cut(("marg_eigh", 0), lambda v: _cut_marg_eigh(v, "marg_eq", "marg_eig0"), v)
-    run.stretch(("marg",), _st_marg, v)
-    run.cut(("marg_eigh", 1), lambda v: _cut_marg_eigh(v, "marg_sym", "marg_eig1"), v)
-    run.stretch(("final",), lambda v: _st_final(v, cfg), v)
-    out = dict(v["out"])
-    dev = v["state"].ps.device
-    out["solver_iterations"] = torch.full((), it, dtype=torch.int64, device=dev)
-    out["newest_rounds"] = torch.full((), n_exec, dtype=torch.int64, device=dev)
-    return v["state"], out
+    run.stretch(("tail",), lambda v: _st_tail(v, cfg, axis), v)
+    run.stretch(("final",), lambda v: _st_final(v, cfg, n_ref), v)
+    return v["state"], dict(v["out"])
 
 
 def _st_head(v, cfg: LioConfig, axis, map_shard, n_ref: int, front):
@@ -599,20 +620,18 @@ def _st_head(v, cfg: LioConfig, axis, map_shard, n_ref: int, front):
     return new
 
 
-def _cut_gn_eigh(v):
-    """The ``eigh`` of round 0's A^T A (the degeneracy projection)."""
-    return {"gn_eig": torch.linalg.eigh(v["gn_sys"][0])}
-
-
 def _st_gn(v, cfg: LioConfig, axis, map_shard, it: int):
-    """Mini-GN round ``it``: round 0 from its step on (its projection from
-    the cut's ``eigh``), a later round whole; ends at the exit test."""
+    """Mini-GN round ``it``: round 0 from its system on (the degeneracy
+    projection from its A^T A), a later round whole (a conditional body);
+    ends at the exit test, with the rounds run counted in ``gn_rounds``."""
     new = {}
     if it == 0:
-        g = GN.projection_from_eigh(*v["gn_eig"], 100.0)
+        ata, x = v["gn_sys"]
+        g = GN.degeneracy_projection(ata, 100.0)
         new["gn_proj"] = (g.proj, g.is_degenerate)
-        _, x = v["gn_sys"]
+        new["gn_rounds"] = torch.ones((), dtype=torch.int32, device=x.device)
     else:
+        new["gn_rounds"] = v["gn_rounds"] + 1
         st = v["st"]
         w = cfg.estimator.window_size
         pts, coeff_acc, ok_acc = v["gn_acc"]
@@ -635,10 +654,12 @@ def _device_vector(values, dtype, device) -> torch.Tensor:
     return out
 
 
-def _st_post(v, cfg: LioConfig, axis, map_shard, n_ref: int, n_exec: int, ex_prior_host):
-    """The newest frame's rows after ``n_exec`` mini-GN rounds, the plane
+def _st_post(v, cfg: LioConfig, axis, map_shard, n_ref: int, ex_prior_host):
+    """The newest frame's rows after the mini-GN's rounds, the plane
     factors, the evaluation at x0 and the convergence gates, and the LM's
-    start."""
+    start. The rows keep the reference's fixed shapes: the newest are the
+    last round's, picked by a device index, and with ``keep_features`` the
+    extra factors carry all ``n_ref`` rounds, those never run all-masked."""
     e = cfg.estimator
     s_opt, w, pivot = e.opt_window_size, e.window_size, e.pivot_idx
     st = v["st"]
@@ -649,18 +670,16 @@ def _st_post(v, cfg: LioConfig, axis, map_shard, n_ref: int, n_exec: int, ex_pri
     planes_extra = None
     if n_ref > 0:
         pts_n, coeff_acc, ok_acc = v["gn_acc"]
-        last = max(n_exec - 1, 0)
-        coeff_n, ok_n = coeff_acc[last], ok_acc[last]
+        last = torch.clamp_min(v["gn_rounds"].to(torch.int64) - 1, 0)
+        coeff_n = coeff_acc.index_select(0, last.reshape(1))[0]
+        ok_n = ok_acc.index_select(0, last.reshape(1))[0]
         if e.keep_features and n_ref > 1:
             # earlier rounds stay in the factor set, anchored at the newest
-            # pose; rounds never executed are all-masked, so only the
-            # executed ones are carried
-            n_keep = max(n_exec, 1)
-            extra_ok = ok_acc[:n_keep].clone()
-            extra_ok[last].fill_(False)  # a fill: ``= False`` would upload a host scalar
+            # pose (rounds never run are all-masked)
+            extra_ok = ok_acc & (torch.arange(n_ref, device=dev) != last)[:, None]
             planes_extra = SV.PlaneFactors(
-                point=pts_n[None].expand((n_keep,) + pts_n.shape),
-                coeff=coeff_acc[:n_keep], mask=extra_ok)
+                point=pts_n[None].expand((n_ref,) + pts_n.shape), coeff=coeff_acc,
+                mask=extra_ok)
     else:
         rel = v["rel"]
         pts_n, coeff_n, ok_n = _associate_frame(_assoc(v["maps"], cfg, axis, map_shard),
@@ -721,7 +740,7 @@ def _st_post(v, cfg: LioConfig, axis, map_shard, n_ref: int, n_exec: int, ex_pri
 
 
 def _st_lm(v, cfg: LioConfig, axis):
-    """One LM iteration; ends at its ``done``."""
+    """One LM iteration; ends at its ``done`` (the carry counts it)."""
     e = cfg.estimator
     carry, done = SV.lm_iteration(v["lm_prob"], v["lm"], s=e.opt_window_size,
                                   cauchy_scale=e.cauchy_loss_scale, psum_axis=axis,
@@ -730,8 +749,7 @@ def _st_lm(v, cfg: LioConfig, axis):
 
 
 def _st_tail(v, cfg: LioConfig, axis):
-    """The yaw-gauge fix, and the marginalization's system up to the first
-    ``eigh``."""
+    """The yaw-gauge fix and the marginalization's system."""
     e = cfg.estimator
     s_opt, pivot = e.opt_window_size, e.pivot_idx
     st = v["st"]
@@ -780,33 +798,21 @@ def _st_tail(v, cfg: LioConfig, axis):
         x_fixed, tree_map(lambda t: t[0], prob.pres), prob.g_vec, prob.planes, v["prior_in"],
         s=s_opt, cauchy_scale=e.cauchy_loss_scale, psum_axis=axis,
         planes_extra=prob.planes_extra)
-    return {"window": window, "x_fixed": x_fixed, "n_plane": n_plane, "marg_ab": (a, b),
-            "marg_eq": MG.equilibrate(a[:SV.N_MARG, :SV.N_MARG])}
+    return {"window": window, "x_fixed": x_fixed, "n_plane": n_plane, "marg_ab": (a, b)}
 
 
-def _cut_marg_eigh(v, src: str, dst: str):
-    """One of the marginalization's two ``eigh`` calls (``ops/marginalization``)."""
-    return {dst: MG._eigh(v[src][0])}
-
-
-def _st_marg(v):
-    """The pseudo-inverse and the Schur complement; ends before the
-    prior's ``eigh``."""
-    a, b = v["marg_ab"]
-    amm_inv = MG.pinv_from_eigh(*v["marg_eig0"], v["marg_eq"][1])
-    a_new, b_new = MG.schur_with(a, b, SV.N_MARG, amm_inv)
-    return {"marg_sym": (0.5 * (a_new + a_new.T), b_new)}
-
-
-def _st_final(v, cfg: LioConfig):
-    """The new prior, the new state and the step's outputs."""
+def _st_final(v, cfg: LioConfig, n_ref: int):
+    """The marginalization (the Schur complement and its factorization into
+    the new prior, an ``eigh`` each), the new state and the step's
+    outputs."""
     e = cfg.estimator
     w, pivot = e.window_size, e.pivot_idx
     st = v["st"]
     x_fixed = v["x_fixed"]
     convergence_flag, turn_off = v["gates"]
     prior_in = v["prior_in"]
-    lin_jac, lin_res = MG.factor_from_eigh(*v["marg_eig1"], v["marg_sym"][1])
+    a_new, b_new = MG.schur_marginalize(*v["marg_ab"], SV.N_MARG)
+    lin_jac, lin_res = MG.factorize_prior(0.5 * (a_new + a_new.T), b_new)
     new_prior = SV.prior_from_factor(x_fixed, lin_jac, lin_res)
     do_marg = torch.full_like(turn_off, e.marginalization_factor) & (~turn_off)
     prior_out = tree_map(lambda new, old: torch.where(do_marg, new, old),
@@ -838,6 +844,9 @@ def _st_final(v, cfg: LioConfig):
         "costs": v["costs0"],
         "convergence": convergence_flag,
         "n_features": v["n_plane"],
+        "solver_iterations": v["lm"].iters.to(torch.int64),
+        "newest_rounds": (v["gn_rounds"].to(torch.int64) if n_ref > 0
+                          else torch.zeros((), dtype=torch.int64, device=st.ps.device)),
     }
     if "front_out" in v:
         outputs.update(v["front_out"])

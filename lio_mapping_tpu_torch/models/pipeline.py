@@ -23,11 +23,11 @@ reassembles the cloud on the device (``multihost.all_gather_rows``) before
 the front end. Without a mesh both are ignored, as in the reference.
 
 On a CUDA device without a mesh (``graphs``, the default there) the
-consumed INITED sweep runs as CUDA graphs (``models/step_graph.py``): the
-front end and the estimator step are ``estimator.step_program``'s
-stretches, each captured once and replayed, cut only at the step's host
-reads (its mini-GN and LM decisions and its ``eigh`` calls); the skipped
-sweep's device predict is one graph. The sweep's cloud (padded with
+consumed INITED sweep is one CUDA graph (``models/step_graph.py``): the
+front end and ``estimator.step_program``, captured once per cloud bucket
+and replayed, the mini-GN's and the LM's early exits decided on the device
+by conditional nodes, so the sweep reads nothing back; the skipped sweep's
+device predict is one graph. The sweep's cloud (padded with
 masked rows to a bucket of row counts, which changes no result), start
 azimuth and IMU interval are staged into the graphs' static input buffers
 without a host sync, and everything ``process`` returns is a copy that no
@@ -274,6 +274,10 @@ class LioPipeline:
             v["state"], PI.unpack_samples(v["packed"].to(dtype)), w)}, v)
         return tree_map(torch.clone, v["pred"])
 
+    def graph_captures(self) -> int:
+        """CUDA graphs captured so far (0 on the eager path)."""
+        return 0 if self._step_graphs is None else self._step_graphs.stats["captures"]
+
     # ------------------------------------------------------------------
     def _graph_inputs(self, packed: np.ndarray):
         """(runner, values) of a graphed call: the IMU interval staged into
@@ -291,10 +295,10 @@ class LioPipeline:
 
     def _graphed_step(self, packed: np.ndarray, start_ori, xyz=None, mask=None, ring=None,
                       pf: "PrefetchedCloud" = None, clouds=None) -> dict:
-        """The consumed INITED sweep through the graphs: the cloud (``pf``,
-        or ``xyz``/``mask``/``ring``) and the front end inside the first
-        stretch, or the odometry's (surf, corner) ``clouds`` bound as
-        inputs. Returns the step's outputs, copied."""
+        """The consumed INITED sweep as one graph: the cloud (``pf``, or
+        ``xyz``/``mask``/``ring``) and the front end inside it, or the
+        odometry's (surf, corner) ``clouds`` bound as inputs. Returns the
+        step's outputs, copied."""
         cfg, dtype = self.cfg, self.dtype
         g, v = self._graph_inputs(packed)
 
@@ -304,7 +308,7 @@ class LioPipeline:
         if clouds is not None:
             g.bind(v, "surf_cloud", clouds[0])
             g.bind(v, "corner_cloud", clouds[1])
-            key = ("odometry",)
+            key = ("step", "odometry")
 
             def front(v):
                 return v["surf_cloud"], v["corner_cloud"], samples(v), {}
@@ -325,7 +329,7 @@ class LioPipeline:
             if start_ori is not None:
                 v["start_ori"] = g.buffer("start_ori", (), dtype)
                 v["start_ori"].fill_(start_ori)
-            key = (rows, width)
+            key = ("step", rows, width)
 
             def front(v):
                 feats = _feats_from_xyzw(v["xyzw"].to(dtype), v.get("start_ori"), cfg)
@@ -333,9 +337,16 @@ class LioPipeline:
                 return feats.surf_less_flat, corner, samples(v), {
                     "corner_cloud": feats.corner_less_sharp,
                     "surf_cloud": feats.surf_less_flat}
-        self.est_state, out = EST.step_program(g, v, cfg, front=front, front_key=key)
+        ex_prior = EST.extrinsic_prior(cfg)
+
+        def program(v):
+            state, out = EST.step_program(g, v, cfg, ex_prior, front=front)
+            return {"state": state, "out": out}
+
+        g.stretch(key, program, v)
+        self.est_state = v["state"]
         # the next replay overwrites the graphs' buffers: hand out copies
-        return tree_map(torch.clone, out)
+        return tree_map(torch.clone, v["out"])
 
     @staticmethod
     def _host_predict_pose(snap: dict, packed: np.ndarray) -> Pose:

@@ -3,61 +3,83 @@ reference's one ``jax.jit`` program per sweep (``models/pipeline.py``'s
 ``front_lio_body`` and ``predict`` there).
 
 ``models/estimator.step_program`` writes the step as stretches of device
-work cut at the host reads that remain: each mini-GN round's exit test,
-each LM iteration's ``done``, and the ``eigh`` calls (round 0's degeneracy
-projection, the marginalization's two). :class:`StepGraphs` runs that
-program on the card:
+work and conditional bodies (the mini-GN's rounds after the first, the
+LM's iterations after the first: each runs where its device flag says the
+loop has not stopped). :class:`StepGraphs` runs that program on the card
+as ONE graph per key, and reads nothing back:
 
-* a stretch is captured the first time its key comes up (an eager warm-up
-  on the runner's side stream, whose results serve that sweep, then the
-  capture) and replayed after that; its key names what sets its shapes and
-  branches (the mini-GN round, the rounds executed, the cloud's row
-  bucket), as ``jax.jit``'s cache is keyed by static arguments;
-* every value that crosses from one stretch to the next lives in a static
-  buffer of this runner (allocated outside the graphs' memory pool, with
-  the strides and the 512-byte alignment offset of the value it holds):
-  a graph copies its results into them as its last nodes, a cut's eager
-  ``eigh`` writes its results there, and a decision reads its flag there.
-  A name keeps its buffer from sweep to sweep (``state`` is the
-  estimator's state), so a loop's stretch (one LM iteration) is one graph
-  replayed;
-* so no graph reads memory of another graph's pool, and the graphs replay
-  one after the other on one stream: the graphs share one pool, whichever
-  order the step's branches replay them in (each graph's own intermediates
-  are dead once it ends);
-* before a replay the runner checks that each value the stretch read at
+* :meth:`StepGraphs.stretch` at the top level is a graph: captured the
+  first time its key comes up (an eager warm-up on the runner's side
+  stream, whose results serve that sweep, then the capture) and replayed
+  after that; its key names what sets its shapes and branches (the
+  cloud's row bucket, or the odometry's clouds), as ``jax.jit``'s cache is
+  keyed by static arguments. A stretch inside it (the program's own) runs
+  in place;
+* :meth:`StepGraphs.when` is a conditional IF node (``csrc/graph_if.cu``:
+  CUDA >= 12.4's conditional handles, set by a one-thread kernel from the
+  device flag): the body is captured into the node's graph on the runner's
+  body stream, its allocations in a pool of their own, and writes its
+  results into the values made before it (``estimator.commit``), so a
+  skipped body leaves them as they were. The warm-up runs every body once
+  on the body stream (a body its flag skips on copies of the values, its
+  results dropped), so no capture meets a first use;
+* the graph's inputs and outputs live in static buffers of this runner
+  (allocated outside the graphs' memory pools, with the strides and the
+  512-byte alignment offset of the value they hold): a graph copies its
+  results into them as its last nodes; a name keeps its buffer from sweep
+  to sweep (``state`` is the estimator's state), so the graphs' pools hold
+  only intermediates, dead once a graph ends, and one pair of pools serves
+  every graph, whichever order they replay in;
+* before a replay the runner checks that each value the program read at
   capture is still the same buffer (address, shape, strides); anything
-  else, and any failure to capture (a host read inside a stretch), raises:
-  the runner never falls back to the eager step;
-* the KNN kernel's launches (and the plain version's searches) inside a
-  graph are recorded at capture with the Python frames that made them and
-  counted at each replay (``ops/knn_kernel.replayed``).
+  else, and any failure to capture (a host read inside the program),
+  raises: the runner never falls back to the eager step;
+* the kernels' launches inside a graph (``ops/launches.py``: the KNN's,
+  the Jacobi ``eigh``'s) are recorded at capture with the Python frames
+  that made them and counted at each replay; those inside a conditional
+  body are counted on the device (one counter a body, bumped by the body)
+  and added when the counts are read (``launches.settle``).
 
-On the CPU the runner executes each stretch eagerly through the same
-static buffers, under :class:`HostReadGuard`, which fails on any op that
-would read back to the host or upload from it, and each cut with only its
-own ops allowed: the CPU tests hold the step to what a capture needs.
+On the CPU the runner executes the program eagerly through the same static
+buffers, under :class:`HostReadGuard`, which fails on any op that would
+read back to the host or upload from it; a conditional body's flag is read
+outside the guard (``stats["conditionals"]``, an IF node on the card), and
+the plain ``eigh`` may check LAPACK's status only inside
+``ops/eigh.eigh_plain``. The CPU tests hold the step to what a capture
+needs.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import sys
+import threading
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ..ops import knn_kernel
+from ..ops import cuda_build
+from ..ops import eigh as EIGH
+from ..ops import launches as LC
+from ..utils.tree import tree_map
 from . import estimator as EST
 
 #: aten ops that read a tensor back to the host or make one from host data
-#: (a host sync on the card each): none may run inside a stretch
+#: (a host sync on the card each): none may run inside a graph's program
 HOST_READS = frozenset({
     "_local_scalar_dense", "_linalg_check_errors", "lift_fresh", "nonzero", "masked_select",
     "bincount", "_unique2", "unique_dim", "unique_consecutive", "repeat_interleave",
     "masked_scatter"})
-#: the ops of the cuts (``eigh``), which run between two graphs
-CUT_OPS = frozenset({"_linalg_eigh", "linalg_eigh"})
+#: ``torch.linalg.eigh``'s ops: the program's ``eigh`` is the Jacobi kernel
+EIGH_OPS = frozenset({"_linalg_eigh", "linalg_eigh"})
+#: op -> the functions inside which the guard lets it run: the CPU's plain
+#: ``eigh`` (``torch.linalg.eigh``, which checks LAPACK's status)
+ALLOWED_IN = {name: (EIGH.eigh_plain.__code__,)
+              for name in EIGH_OPS | {"_linalg_check_errors"}}
+#: conditional bodies a graph may hold (its device counters)
+MAX_BODIES = 64
 
 _ALIGN = 512  # bytes: the CUDA caching allocator's block alignment
 
@@ -67,22 +89,48 @@ class HostReadError(RuntimeError):
 
 
 class HostReadGuard(TorchDispatchMode):
-    """Raises :class:`HostReadError` on any aten op named in ``forbidden``;
-    ``seen`` collects the names of the ops that ran."""
+    """Raises :class:`HostReadError` on any aten op named in ``forbidden``
+    (except inside the functions ``ALLOWED_IN`` names for it); ``seen``
+    collects the names of the ops that ran; :meth:`paused` lets a block
+    through unchecked and unrecorded."""
 
     def __init__(self, forbidden, where: str = ""):
         super().__init__()
         self.forbidden = frozenset(forbidden)
         self.where = where
         self.seen = set()
+        self._paused = False
+
+    @contextlib.contextmanager
+    def paused(self):
+        self._paused = True
+        try:
+            yield
+        finally:
+            self._paused = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self._paused:
+            return func(*args, **(kwargs or {}))
         name = func._overloadpacket.__name__
         self.seen.add(name)
-        if name in self.forbidden or (name in _INDEX_OPS and _bool_index(args)):
+        if (name in self.forbidden and not _inside(ALLOWED_IN.get(name, ()))) or \
+                (name in _INDEX_OPS and _bool_index(args)):
             raise HostReadError(f"aten.{name} in {self.where}: a host read where the step "
                                 "is captured as a CUDA graph")
         return func(*args, **(kwargs or {}))
+
+
+def _inside(codes) -> bool:
+    """Is a function of ``codes`` on the Python stack?"""
+    if not codes:
+        return False
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code in codes:
+            return True
+        f = f.f_back
+    return False
 
 
 #: indexing ops whose bool-mask index turns into ``nonzero`` inside them
@@ -95,7 +143,7 @@ def _bool_index(args) -> bool:
 
 
 class _Reads(dict):
-    """``v`` as a stretch sees it: records the names it reads."""
+    """``v`` as a program sees it: records the names it reads."""
 
     def __init__(self, v):
         super().__init__(v)
@@ -115,9 +163,9 @@ class _Reads(dict):
 
 
 def _signature(v: dict, name: str):
-    """What a stretch's graph depends on in a value it read: each tensor's
-    address, shape, strides and type, each other leaf itself (or that the
-    name is absent)."""
+    """What a graph depends on in a value it read: each tensor's address,
+    shape, strides and type, each other leaf itself (or that the name is
+    absent)."""
     if name not in v:
         return "absent"
     leaves, spec = tree_flatten(v[name])
@@ -144,45 +192,102 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a0 < b0 + _span(b) * b.element_size() and b0 < a0 + _span(a) * a.element_size()
 
 
-class _Graph:
-    __slots__ = ("graph", "outputs", "reads", "events")
+_if_lib = None
+_if_lock = threading.Lock()
 
-    def __init__(self, graph, outputs, reads, events):
+
+def _if_nodes():
+    """``csrc/graph_if.cu``, built and loaded at first use."""
+    global _if_lib
+    with _if_lock:
+        if _if_lib is None:
+            lib = ctypes.CDLL(str(build_if_nodes()))
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.lio_if_begin.argtypes = [vp, vp, vp, ci]
+            lib.lio_if_begin.restype = ci
+            lib.lio_if_end.argtypes = [vp]
+            lib.lio_if_end.restype = ci
+            _if_lib = lib
+    return _if_lib
+
+
+def build_if_nodes():
+    """Compile ``csrc/graph_if.cu`` (``ops/cuda_build.py``); its path."""
+    return cuda_build.build("graph_if.cu", "lioif")
+
+
+class _Graph:
+    __slots__ = ("graph", "outputs", "reads", "events", "bodies", "runs", "settled", "outer")
+
+    def __init__(self, graph, outputs, reads, events, bodies, runs):
         self.graph = graph
         self.outputs = outputs  # name -> value over static buffers
         self.reads = reads      # name -> _signature at capture
-        self.events = events    # the KNN searches inside (ops/knn_kernel)
+        self.events = events    # the kernel launches outside the bodies
+        self.bodies = bodies    # the launches inside each conditional body
+        self.runs = runs        # (MAX_BODIES,) int64: each body's runs, on the device
+        self.settled = [0] * len(bodies)
+        self.outer = ()
+
+    def settle(self):
+        """Count the launches of the bodies that ran since the last settle
+        (one read of the device counters)."""
+        runs = self.runs[:len(self.bodies)].tolist()
+        for i, (events, n) in enumerate(zip(self.bodies, runs)):
+            if n > self.settled[i]:
+                LC.replayed(events, n - self.settled[i], self.outer)
+        self.settled = runs
 
 
 class StepGraphs:
     """Runs ``estimator.step_program`` (and the pipeline's skipped-sweep
     predict) as CUDA graphs on ``device``; see the module docstring.
 
-    ``stats`` counts what ran: stretches, graph replays and captures,
-    cuts, decisions (each a host read) and the copies made to bind inputs."""
+    ``stats`` counts what ran: graphs (top-level stretches), replays and
+    captures, conditional bodies met (``conditionals``), host decisions
+    (``decisions``: none on this runner), the flags read by the warm-up
+    before a capture (``warmup_reads``) and the copies made to bind inputs."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.capture = self.device.type == "cuda"
         self._graphs = {}
         self._static = {}  # (name, leaf, shape, strides, dtype) -> (base, view)
-        self.pool = torch.cuda.graph_pool_handle() if self.capture else None
-        self.stream = torch.cuda.Stream(self.device) if self.capture else None
-        self.stats = {"stretches": 0, "replays": 0, "captures": 0, "cuts": 0, "decisions": 0,
-                      "bind_copies": 0}
+        if self.capture:
+            self._dev = self.device.index if self.device.index is not None \
+                else torch.cuda.current_device()
+            self.pool = torch.cuda.graph_pool_handle()
+            self.body_pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(self.device)
+            self.body_stream = torch.cuda.Stream(self.device)
+        else:
+            self.pool = self.body_pool = self.stream = self.body_stream = None
+        self.stats = {"stretches": 0, "replays": 0, "captures": 0, "conditionals": 0,
+                      "decisions": 0, "warmup_reads": 0, "bind_copies": 0}
         self.guard_ops = set()  # every op seen under the guard (on the CPU)
+        self._mode = None   # inside a program: "cpu", "warm" or "capture"
+        self._guard = None
+        self._capturing = None  # (bodies, runs) of the graph being captured
 
     # -- the runner protocol of estimator.step_program ----------------------
     def stretch(self, key, fn, v: dict):
-        """Run one stretch: replay its graph, or capture it the first time."""
+        """At the top level one graph: replay it, or capture it the first
+        time; inside a graph's program, run ``fn`` in place."""
+        if self._mode is not None:
+            v.update(fn(v))
+            return
         if EST._TRUNCATE_STAGE is not None:
             raise ValueError("the graphed step does not truncate: run the pipeline with "
                              "graphs=False to use estimator._TRUNCATE_STAGE")
         self.stats["stretches"] += 1
         if not self.capture:
             reads = _Reads(v)
-            with self._guarded(HOST_READS | CUT_OPS, f"stretch {key}"):
-                out = fn(reads)
+            self._mode = "cpu"
+            try:
+                with self._guarded(HOST_READS | EIGH_OPS, f"graph {key}"):
+                    out = fn(reads)
+            finally:
+                self._mode = None
             v.update(self._store(out))
             return
         g = self._graphs.get(key)
@@ -192,26 +297,34 @@ class StepGraphs:
             return
         for name, sig in g.reads.items():
             if _signature(v, name) != sig:
-                raise RuntimeError(f"stretch {key}: input {name!r} is not the buffer its graph "
-                                   "was captured with")
+                raise RuntimeError(f"graph {key}: input {name!r} is not the buffer it was "
+                                   "captured with")
         g.graph.replay()
         self.stats["replays"] += 1
-        knn_kernel.replayed(g.events)
+        LC.replayed(g.events)
+        if g.bodies:
+            g.outer = LC.outer_stack()
+            LC.defer(g)
         v.update(g.outputs)
 
-    def cut(self, key, fn, v: dict):
-        """Run a cut's op (an ``eigh``) eagerly, its results into static
-        buffers."""
-        self.stats["cuts"] += 1
-        with self._guarded(HOST_READS - {"_linalg_check_errors"}, f"cut {key}"):
-            out = fn(v)
-        v.update(self._store(out))
-
-    def decide(self, v: dict, name: str) -> bool:
-        """A decision of the step: one host read of a device flag."""
-        self.stats["decisions"] += 1
-        with self._guarded(HOST_READS - {"_local_scalar_dense"}, f"decision {name}"):
-            return bool(v[name])
+    def when(self, v: dict, stop: str, key, fn):
+        """A conditional body: ``fn`` runs unless the device flag ``v[stop]``
+        is set, its results copied into the values it updates. On the card
+        an IF node of the graph being captured; on the CPU the flag is read
+        outside the guard."""
+        mode = self._mode
+        if mode is None:
+            raise RuntimeError("a conditional body runs inside a graph's program")
+        self.stats["conditionals"] += 1
+        if mode == "cpu":
+            with self._guard.paused():
+                run = not bool(v[stop])
+            if run:
+                EST.commit(v, fn(v))
+        elif mode == "warm":
+            self._warm_body(v, stop, fn)
+        else:
+            self._capture_body(v, stop, key, fn)
 
     # -- inputs ---------------------------------------------------------------
     def bind(self, v: dict, name: str, value):
@@ -224,26 +337,28 @@ class StepGraphs:
         return self._static_for(name, 0, torch.empty(shape, dtype=dtype, device="meta"))
 
     def memory_bytes(self) -> dict:
-        """Device memory of the graphs: their pool's segments, and the
-        static buffers (``pool`` needs the card)."""
+        """Device memory of the graphs: their pools' segments (the bodies'
+        pool apart), and the static buffers (the pools need the card)."""
         static = sum(base.numel() * base.element_size() for base, _ in self._static.values())
-        pool = None
+        pool = body_pool = None
         if self.capture:
-            pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                       if tuple(seg.get("segment_pool_id", ())) == tuple(self.pool))
-        return {"graphs": len(self._graphs), "pool": pool, "static": static}
+            def size(p):
+                return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                           if tuple(seg.get("segment_pool_id", ())) == tuple(p))
+            pool, body_pool = size(self.pool), size(self.body_pool)
+        return {"graphs": len(self._graphs), "pool": pool, "body_pool": body_pool,
+                "static": static}
 
     # -- internals ------------------------------------------------------------
     @contextlib.contextmanager
     def _guarded(self, forbidden, where):
-        if self.capture:
-            yield
-            return
         guard = HostReadGuard(forbidden, where)
+        self._guard = guard
         try:
             with guard:
                 yield
         finally:
+            self._guard = None
             self.guard_ops |= guard.seen
 
     def _static_for(self, name, leaf: int, t: torch.Tensor) -> torch.Tensor:
@@ -285,33 +400,90 @@ class StepGraphs:
             self.stats["bind_copies"] += len(pairs)
         return result
 
+    def _warm_body(self, v: dict, stop: str, fn):
+        """The warm-up's conditional body, on the body stream: run for real
+        where the flag says so (one host read), on copies of the values
+        otherwise, so that every body has run once before the capture."""
+        self.stats["warmup_reads"] += 1
+        run = not bool(v[stop])
+        cur = torch.cuda.current_stream(self.device)
+        b = self.body_stream
+        b.wait_stream(cur)
+        with torch.cuda.stream(b):
+            if run:
+                EST.commit(v, fn(v))
+            else:
+                fn(tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, dict(v)))
+        cur.wait_stream(b)
+
+    def _capture_body(self, v: dict, stop: str, key, fn):
+        """Capture ``fn`` into an IF node run where ``v[stop]`` is false."""
+        bodies, runs = self._capturing
+        if len(bodies) >= MAX_BODIES:
+            raise RuntimeError(f"more than {MAX_BODIES} conditional bodies in one graph")
+        flag = v[stop]
+        if flag.dtype != torch.bool or flag.numel() != 1 or not flag.is_cuda:
+            raise ValueError(f"body {key}: {stop!r} must be one bool on {self.device}")
+        lib = _if_nodes()
+        cur = torch.cuda.current_stream(self.device)
+        b = self.body_stream
+        err = lib.lio_if_begin(cur.cuda_stream, b.cuda_stream, flag.data_ptr(), 1)
+        if err != 0:
+            raise RuntimeError(f"body {key}: conditional node not added: cudaError {err}")
+        slot = len(bodies)
+        try:
+            with LC.recording(stop=StepGraphs._capture.__code__) as events, \
+                    torch.cuda.stream(b):
+                torch._C._cuda_beginAllocateCurrentStreamToPool(self._dev, self.body_pool)
+                try:
+                    EST.commit(v, fn(v))
+                    runs[slot:slot + 1].add_(1)
+                finally:
+                    torch._C._cuda_endAllocateToPool(self._dev, self.body_pool)
+        finally:
+            err = lib.lio_if_end(b.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"body {key}: its capture failed: cudaError {err}")
+        bodies.append(events)
+
     def _capture(self, key, fn, v: dict) -> _Graph:
-        """Warm the stretch up eagerly on the side stream (its results serve
-        this sweep), then capture it into a graph that writes the same
-        static buffers."""
+        """Warm the program up eagerly on the side stream (its results
+        serve this sweep; every conditional body runs once), then capture
+        it into a graph that writes the same static buffers."""
         cur = torch.cuda.current_stream(self.device)
         s = self.stream
         s.wait_stream(cur)
-        with torch.cuda.stream(s):
-            outputs = self._store(fn(dict(v)))
+        self._mode = "warm"
+        try:
+            with torch.cuda.stream(s):
+                outputs = self._store(fn(dict(v)))
+        finally:
+            self._mode = None
         reads = _Reads(v)
         graph = torch.cuda.CUDAGraph()
+        runs = torch.zeros(MAX_BODIES, dtype=torch.int64, device=self.device)
+        bodies = []
+        s.wait_stream(cur)
         # capture_begin/_end as ``torch.cuda.graph`` calls them, without its
         # synchronize, gc.collect and empty_cache before each capture (the
         # last sends the next sweep's eager allocations back to cudaMalloc)
-        with knn_kernel.recording(stop=StepGraphs._capture.__code__) as events, \
-                torch.cuda.stream(s):
-            graph.capture_begin(self.pool)
-            try:
-                self._store(fn(reads))
-            except BaseException:
+        self._mode, self._capturing = "capture", (bodies, runs)
+        try:
+            with LC.recording(stop=StepGraphs._capture.__code__) as events, \
+                    torch.cuda.stream(s):
+                graph.capture_begin(self.pool)
                 try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass  # the capture is already invalid: report the first error
-                raise
-            graph.capture_end()
+                    self._store(fn(reads))
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture is already invalid: report the first error
+                    raise
+                graph.capture_end()
+        finally:
+            self._mode, self._capturing = None, None
         cur.wait_stream(s)
         self.stats["captures"] += 1
         return _Graph(graph, outputs, {name: _signature(v, name) for name in reads.names},
-                      events)
+                      events, bodies, runs)

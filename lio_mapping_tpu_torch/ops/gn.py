@@ -12,6 +12,9 @@ from typing import NamedTuple
 
 import torch
 
+from . import eigh as EIGH
+from . import lu_solve as LU
+
 
 class GNState(NamedTuple):
     proj: torch.Tensor          # (6,6) degeneracy projection matrix
@@ -19,14 +22,14 @@ class GNState(NamedTuple):
 
 
 def degeneracy_projection(ata: torch.Tensor, eigen_th: float) -> GNState:
-    """The degenerate-direction projector from A^T A (iteration 0 only)."""
-    vals, vecs = torch.linalg.eigh(ata)  # ascending
+    """The degenerate-direction projector from A^T A (iteration 0 only); the
+    ``eigh`` is ``ops/eigh.eigh`` (the Jacobi kernel on the card)."""
+    vals, vecs = EIGH.eigh(ata)  # ascending
     return projection_from_eigh(vals, vecs, eigen_th)
 
 
 def projection_from_eigh(vals: torch.Tensor, vecs: torch.Tensor, eigen_th: float) -> GNState:
-    """:func:`degeneracy_projection` from A^T A's eigendecomposition (the
-    part after ``eigh``, which the graphed step runs between two graphs)."""
+    """:func:`degeneracy_projection` from A^T A's eigendecomposition."""
     keep_small = torch.cumprod((vals < eigen_th).to(torch.int32), dim=0) == 1
     mask = (~keep_small).to(vecs.dtype)
     proj = (vecs * mask[None, :]) @ vecs.T
@@ -34,12 +37,13 @@ def projection_from_eigh(vals: torch.Tensor, vecs: torch.Tensor, eigen_th: float
 
 
 def solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.linalg.solve(a, b)`` without its error check, which reads the
-    factorization's status back to the host (one sync per call on the
-    card): the same factorization and solve, bit for bit. A singular
-    system gives non-finite entries instead of an error, as
+    """``torch.linalg.solve(a, b)`` without its error check (which reads
+    the factorization's status back to the host): ``ops/lu_solve.solve``,
+    the LU kernel on the card and ``torch.linalg.solve_ex`` on the CPU (the
+    same factorization and solve as ``torch.linalg.solve``, bit for bit). A
+    singular system gives non-finite entries instead of an error, as
     ``jnp.linalg.solve`` does in the reference."""
-    return torch.linalg.solve_ex(a, b, check_errors=False)[0]
+    return LU.solve(a, b)
 
 
 def solve_normal_equations(jac, rhs, w, state: GNState | None, eigen_th: float):

@@ -14,27 +14,25 @@ stream; it allocates the outputs and the scratch with ``torch.empty`` and
 runs no other PyTorch op on them. It raises on anything the kernel does
 not take, CPU tensors included: ``ops/knn.py::knn`` sends those to the
 plain version. ``prune_flags`` is the plain version of the kernel's tile
-flags. ``LAUNCHES`` counts the kernel's launches; a launch made while a
-CUDA graph is captured is counted at each replay of the graph instead
-(``recording``, ``replayed``), and ``LISTENERS`` are told of each search
-with the frames that made it.
+flags. :func:`launches` counts the kernel's launches through
+``ops/launches.py`` (kind "kernel"; the plain version's searches are kind
+"plain"): a launch made while a CUDA graph is captured is counted at each
+replay of the graph instead (``recording``, ``replayed``), one inside a
+conditional node of a graph where the device ran it, and ``LISTENERS`` are
+told of each search with the frames that made it.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import fcntl
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import sys
 import threading
-from pathlib import Path
 
 import torch
+
+from . import cuda_build
+from . import launches as LC
+from .launches import LISTENERS, recording, replayed  # noqa: F401 (the counters' API)
 
 # the constexprs of csrc/knn.cu (tests/test_torch_knn.py holds them equal)
 BQ = 256       # queries per prune block (the Pallas BQ: prune-flag granularity)
@@ -45,58 +43,15 @@ BATCH = 4      # sub-ranges are whole batches of this many points
 BOUNDS_BYTES = 48  # sizeof(Bounds)
 MAX_K = 8
 
-#: launches of the kernel since import, those replayed inside CUDA graphs
-#: included (``chip_smoke.py`` resets and reads it)
-LAUNCHES = 0
-#: callables told of every search as ``(kind, shape, stack)``: kind
-#: "kernel" (a launch of the kernel) or "plain" (``ops/knn.knn_tiled``),
-#: shape "QxMxk", stack the code objects of the Python frames that made it
-#: (``tools/profiling.py`` attributes searches with them)
-LISTENERS = []
-_recording = None  # the events of the CUDA graph being captured
 
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "knn.cu"
-_BUILD = _PKG / "_build"
 _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA KNN kernel is built at first use "
-                       "and needs the CUDA toolkit")
-
-
-def build() -> Path:
-    """Compile ``csrc/knn.cu`` into ``_build/`` (named by the source hash, so
-    an edited source rebuilds) and return the library path. ``ptxas``'s
-    register and spill report lands beside it in ``<name>.log``."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    out = _BUILD / f"liblioknn_{digest}.so"
-    if out.exists():
-        return out
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    # processes that start together (the ranks of ``run --mesh``) build once:
-    # the first takes the lock, the others wait for it and find the library
-    with open(_BUILD / "knn.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if out.exists():
-            return out
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    return out
+def build():
+    """Compile ``csrc/knn.cu`` into ``_build/`` (``ops/cuda_build.py``) and
+    return the library path."""
+    return cuda_build.build("knn.cu", "lioknn")
 
 
 def _load():
@@ -204,58 +159,24 @@ def _launch(queries, q_mask, db, db_mask, k, prune_beyond):
     return out_d, out_i, scratch
 
 
-def _stack(stop=None):
-    """The code objects of the calling frames (outermost last), up to the
-    frame running ``stop``."""
-    codes = []
-    f = sys._getframe(2)
-    while f is not None and f.f_code is not stop:
-        codes.append(f.f_code)
-        f = f.f_back
-    return tuple(codes)
+def launches() -> int:
+    """Launches of the kernel since import or :func:`reset_launches`, those
+    replayed inside CUDA graphs included (``chip_smoke.py`` resets and reads
+    it)."""
+    return LC.count("kernel")
+
+
+def reset_launches():
+    LC.reset("kernel")
 
 
 def note_search(kind: str, q_n: int, m_n: int, k: int):
     """Count one search (kind "kernel": a launch of the kernel; "plain":
-    a search of the plain version) and tell the listeners. While a CUDA
-    graph is captured the search does not run: it is recorded with the
-    frames inside the capture, and counted at each replay (:func:`replayed`)."""
-    shape = f"{q_n}x{m_n}x{k}"
-    if _recording is not None:
-        events, stop = _recording
-        events.append((kind, shape, _stack(stop)))
-        return
-    _count(kind, shape, _stack() if LISTENERS else ())
-
-
-def _count(kind, shape, stack):
-    global LAUNCHES
-    if kind == "kernel":
-        LAUNCHES += 1
-    for listener in tuple(LISTENERS):
-        listener(kind, shape, stack)
-
-
-@contextlib.contextmanager
-def recording(stop=None):
-    """Record the searches made inside the block (a CUDA graph's capture)
-    instead of counting them; ``stop``: the code object of the capturing
-    frame, where the recorded stacks end. Yields the list of events."""
-    global _recording
-    prev, events = _recording, []
-    _recording = (events, stop)
-    try:
-        yield events
-    finally:
-        _recording = prev
-
-
-def replayed(events):
-    """Count the searches of a replayed graph, each with its frames inside
-    the graph below the frames that replay it."""
-    outer = _stack() if LISTENERS else ()
-    for kind, shape, inner in events:
-        _count(kind, shape, inner + outer)
+    a search of the plain version) and tell the listeners with shape
+    "QxMxk". While a CUDA graph is captured the search does not run: it is
+    recorded with the frames inside the capture, and counted at each replay
+    (``ops/launches.py``)."""
+    LC.note(kind, f"{q_n}x{m_n}x{k}")
 
 
 def search(queries, q_mask, db, db_mask, k: int = 5, prune_beyond: float | None = None):

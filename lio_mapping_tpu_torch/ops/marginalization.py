@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import quaternion as quat
+from . import eigh as EIGH
 
 EPS = 1e-8  # MarginalizationFactor.h:109
 
@@ -74,17 +75,10 @@ def _rel_tol(dtype) -> float:
 
 
 def _eigh(a: torch.Tensor):
-    """``torch.linalg.eigh`` in the working type, except for a float32
-    matrix on the CPU, which is decomposed in float64 and returned in
-    float32. In float32 the Schur complements built here carry rounding
-    noise of ~1e5 (their bias blocks reach ~1e12 before the cancellation),
-    and MKL's float32 divide-and-conquer refuses some of them as
-    non-convergent where the reference's eigh decomposes them. On the card
-    cuSOLVER takes them in float32."""
-    if a.dtype == torch.float32 and a.device.type == "cpu":
-        vals, vecs = torch.linalg.eigh(a.double())
-        return vals.float(), vecs.float()
-    return torch.linalg.eigh(a)
+    """``ops/eigh.eigh``: the Jacobi kernel on the card, on the CPU
+    ``torch.linalg.eigh`` (in float64 for a float32 matrix: MKL's float32
+    divide-and-conquer refuses some of these Schur complements)."""
+    return EIGH.eigh(a)
 
 
 def equilibrate(a: torch.Tensor):
@@ -111,8 +105,7 @@ def psd_pinv(a: torch.Tensor, eps: float = EPS):
 
 
 def pinv_from_eigh(vals, vecs, d, eps: float = EPS):
-    """:func:`psd_pinv` from the equilibrated matrix's eigendecomposition
-    (the graphed step runs the ``eigh`` itself between two graphs)."""
+    """:func:`psd_pinv` from the equilibrated matrix's eigendecomposition."""
     cut = torch.clamp_min(torch.max(vals) * _rel_tol(vecs.dtype), eps)
     keep = vals > cut
     inv_vals = torch.where(keep, 1.0 / torch.where(keep, vals, torch.ones_like(vals)),

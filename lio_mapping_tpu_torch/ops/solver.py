@@ -7,10 +7,12 @@ optional extrinsic prior. State layout (S = opt_window_size):
     [pose_0..pose_S (6 each) | sb_0..sb_S (9 each) | ex (6)]
 pose_0 is the pivot.
 
-The LM ``while_loop`` is a Python loop: its exit test reads one device
-flag per iteration but the last possible one (a host sync each); its
-pieces (``lm_start``, ``lm_iteration``, ``lm_diagnostics``) are what the
-graphed step runs between those reads.
+``solve_window``'s LM ``while_loop`` is a Python loop: its exit test
+reads one device flag per iteration but the last possible one (a host
+sync each). Its pieces (``lm_start``, ``lm_iteration``, which counts the
+iterations in the carry on the device, and ``lm_diagnostics``) are what the
+estimator's step program runs, the iterations after the first as
+conditional bodies that the device decides.
 
 ``psum_axis`` (a ``parallel.multihost.Mesh``): the plane rows are this
 rank's shard; their normal equations (and cost) are summed over the ranks
@@ -257,7 +259,8 @@ def _retract(x: OptStates, dx: torch.Tensor, s: int) -> OptStates:
 
 class LmCarry(NamedTuple):
     """What one LM iteration hands the next: the iterate, the normal
-    equations at it, its cost, the group costs and the damping."""
+    equations at it, its cost, the group costs, the damping and the
+    iterations run (a device int32, the reference's ``iters``)."""
 
     x: OptStates
     h: torch.Tensor
@@ -265,6 +268,7 @@ class LmCarry(NamedTuple):
     cost: torch.Tensor
     gc: torch.Tensor
     lam: torch.Tensor
+    iters: torch.Tensor
 
 
 class LmProblem(NamedTuple):
@@ -305,7 +309,8 @@ def lm_start(x0: OptStates, pres: Preintegration, g_vec, planes: PlaneFactors,
     else:
         h, gv, cost, gc = _eval_all(prob, x0, s, cauchy_scale, psum_axis)
     lam = torch.full((), 1e-4, dtype=dtype, device=dev)
-    return prob, LmCarry(x=x0, h=h, gv=gv, cost=cost, gc=gc, lam=lam)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    return prob, LmCarry(x=x0, h=h, gv=gv, cost=cost, gc=gc, lam=lam, iters=iters)
 
 
 def _eval_all(prob: LmProblem, x: OptStates, s: int, cauchy_scale: float, psum_axis):
@@ -339,11 +344,11 @@ def lm_iteration(prob: LmProblem, c: LmCarry, *, s: int, cauchy_scale: float = 1
     done = (accept & (c.cost - new_cost <= ftol * c.cost)) | small
     lam = torch.where(accept, torch.clamp_min(c.lam * 0.5, 1e-8), c.lam * 4.0)
     cost = torch.where(accept, new_cost, c.cost)
-    return LmCarry(x=x, h=h, gv=gv, cost=cost, gc=gc, lam=lam), done
+    return LmCarry(x=x, h=h, gv=gv, cost=cost, gc=gc, lam=lam, iters=c.iters + 1), done
 
 
-def lm_diagnostics(prob: LmProblem, c: LmCarry, iterations: int, psum_axis=None):
-    """The :class:`SolveDiagnostics` after ``iterations`` LM iterations."""
+def lm_diagnostics(prob: LmProblem, c: LmCarry, psum_axis=None):
+    """The :class:`SolveDiagnostics` of the carry ``c``."""
     n_plane = torch.sum(prob.planes.mask)
     if prob.planes_extra is not None:
         n_plane = n_plane + torch.sum(prob.planes_extra.mask)
@@ -351,7 +356,7 @@ def lm_diagnostics(prob: LmProblem, c: LmCarry, iterations: int, psum_axis=None)
         n_plane = MH.psum(n_plane, psum_axis)
     return SolveDiagnostics(
         cost_marg=c.gc[0], cost_imu=c.gc[1], cost_plane=c.gc[2], n_plane=n_plane,
-        iterations=torch.full((), iterations, dtype=torch.int64, device=c.gc.device))
+        iterations=c.iters.to(torch.int64))
 
 
 def solve_window(x0: OptStates, pres: Preintegration, g_vec, planes: PlaneFactors,
@@ -381,7 +386,7 @@ def solve_window(x0: OptStates, pres: Preintegration, g_vec, planes: PlaneFactor
         it += 1
         if bool(done):  # one host sync per LM iteration
             break
-    return c.x, lm_diagnostics(prob, c, it, psum_axis)
+    return c.x, lm_diagnostics(prob, c, psum_axis)
 
 
 #: states eliminated by :func:`marginalize_pivot`: pose_0 and sb_0

@@ -96,7 +96,7 @@ def run_variant(name: str, sweeps: int, frames_path: str, device) -> dict:
                    tuple(z[f"{k}{i}"] for k in ("dts", "acc", "gyr", "a0", "w0")))
                   for i in range(sweeps)]
 
-    knn0 = knn_kernel.LAUNCHES
+    knn0 = knn_kernel.launches()
     est, gt = [], []
     t_steady = None
     n_steady = 0
@@ -128,7 +128,7 @@ def run_variant(name: str, sweeps: int, frames_path: str, device) -> dict:
         "n_inited_poses": len(est),
         "fps": round(n_steady / elapsed, 2) if elapsed > 0 else None,
         "device": device_label(device),
-        "knn_launches": knn_kernel.LAUNCHES - knn0,
+        "knn_launches": knn_kernel.launches() - knn0,
     }
 
 

@@ -109,7 +109,7 @@ def _rank(rank, world, address, opts, out_dir):
             np.savez(os.path.join(out_dir, f"ranks{world}.npz"), ms=ms,
                      q=x_opt.q.cpu().numpy(), p=x_opt.p.cpu().numpy(),
                      sb=x_opt.sb.cpu().numpy(), cost=cost.cpu().numpy(),
-                     knn_launches=knn_kernel.LAUNCHES,
+                     knn_launches=knn_kernel.launches(),
                      backend=mesh.backend, device=str(mesh.device))
     finally:
         MH.shutdown()

@@ -95,12 +95,12 @@ def main(argv=None):
     device = resolve_device(args.device)
     from ..ops import knn_kernel
 
-    knn0 = knn_kernel.LAUNCHES
+    knn0 = knn_kernel.launches()
     result = {"device": device_label(device), "rmse": {}, "errs": {}}
     for mode, flags in MODES.items():
         if args.mode in ("all", mode):
             result["rmse"][mode], result["errs"][mode] = run(*flags, device=device)
-    result["knn_launches"] = knn_kernel.LAUNCHES - knn0
+    result["knn_launches"] = knn_kernel.launches() - knn0
     print(json.dumps(result))
     return 0
 

@@ -78,7 +78,7 @@ def main(argv=None):
     print(json.dumps({"device": device_label(dev), "path": "eager",
                       "process_sweep_ms": round(t_feat, 3),
                       "lio_step_ms": round(t_step, 3), "sum_ms": round(t_feat + t_step, 3),
-                      "knn_launches": knn_kernel.LAUNCHES}))
+                      "knn_launches": knn_kernel.launches()}))
     return 0
 
 

@@ -44,10 +44,10 @@ def measure(results, name, fn, *args, device, n=20, mult=1.0, analytic_flops=Non
     from ..ops import knn_kernel
     from ..utils.profiling import CostCounter, timed
 
-    knn0 = knn_kernel.LAUNCHES
+    knn0 = knn_kernel.launches()
     with CostCounter() as counter:
         fn(*args)
-    launches = knn_kernel.LAUNCHES - knn0
+    launches = knn_kernel.launches() - knn0
     flops, byt = float(counter.flops) or None, float(counter.bytes) or None
     if analytic_flops:
         flops = (flops or 0.0) + analytic_flops
@@ -185,7 +185,7 @@ def main(argv=None):
         "profile": args.profile,
         "device": device_label(dev),
         "path": "eager (graphs=False): each stage called alone",
-        "knn_launches": knn_kernel.LAUNCHES,
+        "knn_launches": knn_kernel.launches(),
         "sum_stage_ms": round(total_ms, 2),
         "sum_stage_gflop": round(total_gf, 2),
         "aggregate_tflops_per_s": round(total_gf / total_ms, 3) if total_ms else None,

@@ -8,9 +8,12 @@ a graphed one, whose stages run inside replayed CUDA graphs.
 ``launches_by_path``, ``plain_searches`` and ``kernel_shapes`` attribute the
 KNN searches made inside a block: the kernel's launches and the plain
 version's searches to the functions on whose Python stack they were made,
-and the kernel's searches to their shapes. They listen to
-``ops/knn_kernel.LISTENERS``, which also hears the searches replayed inside
-the step's CUDA graphs, with the frames that made them at capture.
+and the kernel's searches to their shapes (``launches_by_path`` takes
+``kind="eigh"`` for the Jacobi kernel's launches). They listen to
+``ops/launches.LISTENERS``, which also hears the launches replayed inside
+the step's CUDA graphs, with the frames that made them at capture, and
+settle the launches the device counted in conditional bodies as the block
+ends.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import time
 
 import torch
 
-from ..ops import knn_kernel
+from ..ops import launches as LC
 from ..utils.timing import synchronize
 
 
@@ -104,19 +107,21 @@ def _listening(kind, targets, counts):
             if code in frames:
                 counts[name] = counts.get(name, 0) + 1
 
-    knn_kernel.LISTENERS.append(listen)
+    LC.LISTENERS.append(listen)
     try:
         yield counts
     finally:
-        knn_kernel.LISTENERS.remove(listen)
+        LC.settle()  # the launches the device counted in conditional bodies
+        LC.LISTENERS.remove(listen)
 
 
 @contextlib.contextmanager
-def launches_by_path(counts, targets, calls=None):
-    """Attribute the KNN kernel's launches to the path that made them: a
-    launch made (or, in a CUDA graph, captured) inside a call of the
-    (module, function) ``targets[name]`` adds one to ``counts[name]``;
-    with ``calls``, each call of a target adds one to ``calls[name]``."""
+def launches_by_path(counts, targets, calls=None, kind: str = "kernel"):
+    """Attribute the KNN kernel's launches (``kind="eigh"``: the Jacobi
+    kernel's) to the path that made them: a launch made (or, in a CUDA
+    graph, captured) inside a call of the (module, function)
+    ``targets[name]`` adds one to ``counts[name]``; with ``calls``, each
+    call of a target adds one to ``calls[name]``."""
     originals = []
     if calls is not None:
         def wrap(name, fn):
@@ -127,7 +132,7 @@ def launches_by_path(counts, targets, calls=None):
             return run
 
         originals = [(mod, attr, getattr(mod, attr)) for mod, attr in targets.values()]
-    with _listening("kernel", targets, counts):
+    with _listening(kind, targets, counts):
         for name, (mod, attr) in targets.items():
             if calls is not None:
                 setattr(mod, attr, wrap(name, getattr(mod, attr)))
@@ -151,8 +156,9 @@ def kernel_shapes(shapes):
         if kind == "kernel":
             shapes[shape] = shapes.get(shape, 0) + 1
 
-    knn_kernel.LISTENERS.append(listen)
+    LC.LISTENERS.append(listen)
     try:
         yield shapes
     finally:
-        knn_kernel.LISTENERS.remove(listen)
+        LC.settle()
+        LC.LISTENERS.remove(listen)

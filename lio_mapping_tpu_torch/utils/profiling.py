@@ -128,10 +128,12 @@ def count_launches(fn, device):
                  "top_device_kernels": [[name, c, ms] for name, (c, ms) in top]}
 
 
-def count_syncs(fn, device):
+def count_syncs(fn, device, synchronize: bool = True):
     """(``fn()``, host syncs of the call): warnings of the CUDA sync-debug
     mode that report a synchronizing operation (not the mode's notice, once
-    a process, that it is a prototype)."""
+    a process, that it is a prototype). ``synchronize``: wait for the
+    call's device work after counting (a loop that counts each of its steps
+    passes False, so that counting adds no sync of its own)."""
     dev = _cuda(device, "count_syncs")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -140,8 +142,37 @@ def count_syncs(fn, device):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize(dev)
+    if synchronize:
+        torch.cuda.synchronize(dev)
     return out, sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+class SteadySyncs:
+    """Host syncs of a loop's steady steps: :meth:`step` runs one step,
+    counting its syncs unless it captured a CUDA graph (a first sweep of its
+    key, whose warm-up reads flags on purpose). ``clean`` is the
+    ``clean_stream`` of ``cli run --stats-json`` and ``tools/bench``: at
+    least one steady step and no sync in any. On a CPU device nothing is
+    counted (``syncs`` stays None, ``clean`` False)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.syncs = 0 if self.device.type == "cuda" else None
+        self.steps = 0
+
+    def step(self, fn, pipe):
+        if self.syncs is None:
+            return fn()
+        captures = pipe.graph_captures()
+        out, n = count_syncs(fn, self.device, synchronize=False)
+        if pipe.graph_captures() == captures:
+            self.syncs += n
+            self.steps += 1
+        return out
+
+    @property
+    def clean(self) -> bool:
+        return self.syncs == 0 and self.steps > 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,8 @@
-"""The CUDA KNN kernel on the card, against its plain version (float32).
+"""The port's CUDA kernels on the card: the KNN kernel against its plain
+version (float32), the Jacobi ``eigh`` kernel against float64
+``torch.linalg.eigh``, and the graphed INITED step (one CUDA graph a
+consumed sweep, conditional nodes for the early exits) against the eager
+one.
 
 These tests need an NVIDIA GPU and skip without one. They import neither
 JAX nor the reference package, so they also run where only the port is
@@ -6,7 +10,7 @@ installed; there, skip the JAX session set-up of ``tests/conftest.py``:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: distances within 8 float32 ulps of max |q|^2 + max |p|^2
+KNN tolerances: distances within 8 float32 ulps of max |q|^2 + max |p|^2
 (the cross term cancels there; the kernel rounds through fmaf, the plain
 version through a matmul), as ``chip_smoke.py`` checks them. Neighbours
 are compared tie-robustly through the chosen points' float64 distances,
@@ -62,9 +66,9 @@ def _clustered(rng, n_m, n_q):
 def test_kernel_matches_plain(dev, k, gate):
     q, qm, db, dm = _clustered(np.random.default_rng(k), n_m=9000, n_q=700)
     args = [torch.as_tensor(x).to(dev) for x in (q, qm, db, dm)]
-    before = TKK.LAUNCHES
+    before = TKK.launches()
     gd, gi = TK.knn(*args, k=k, prune_beyond=gate)
-    assert TKK.LAUNCHES == before + 1
+    assert TKK.launches() == before + 1
     rd, ri = TK.knn_tiled(*args, k=k)
     torch.cuda.synchronize()
     gd, gi, rd, ri = (x.cpu().numpy() for x in (gd, gi, rd, ri))
@@ -93,10 +97,10 @@ def test_cost_counter_and_count_launches_see_one_search(dev):
     q, qm, db, dm = _clustered(np.random.default_rng(3), n_m=9000, n_q=700)
     args = [torch.as_tensor(x).to(dev) for x in (q, qm, db, dm)]
     TK.knn(*args, k=5, prune_beyond=1.0)  # built and loaded
-    before = TKK.LAUNCHES
+    before = TKK.launches()
     with CostCounter() as cost:
         (d, i), counts = count_launches(lambda: TK.knn(*args, k=5, prune_beyond=1.0), dev)
-    assert TKK.LAUNCHES == before + 1
+    assert TKK.launches() == before + 1
     assert counts["runtime_launches"] >= 1 and counts["device_kernels"] >= 1
     assert cost.flops == 0 and set(cost.by_op) <= {"aten.empty", "aten.slice", "aten.view"}
     assert d.shape == i.shape == (700, 5)
@@ -110,9 +114,9 @@ def test_float64_search_runs_the_kernel_in_float32(dev):
     q, qm, db, dm = _clustered(np.random.default_rng(4), n_m=9000, n_q=700)
     f32 = [torch.as_tensor(x).to(dev) for x in (q, qm, db, dm)]
     f64 = [f32[0].double(), f32[1], f32[2].double(), f32[3]]
-    before = TKK.LAUNCHES
+    before = TKK.launches()
     d64, i64 = TK.knn(*f64, k=5, prune_beyond=1.0)
-    assert TKK.LAUNCHES == before + 1 and d64.dtype == torch.float64
+    assert TKK.launches() == before + 1 and d64.dtype == torch.float64
     d32, i32 = TK.knn(*f32, k=5, prune_beyond=1.0)
     assert torch.equal(i64, i32) and torch.equal(d64, d32.double())
 
@@ -326,12 +330,12 @@ def test_viz_normals_association_kernel_against_plain(dev, tmp_path):
 
     log, gt = str(tmp_path / "seq.liol"), str(tmp_path / "gt.tum")
     assert cli.main(["simulate", "--out", log, "--sweeps", "12", "--gt-out", gt]) == 0
-    before = TKK.LAUNCHES
+    before = TKK.launches()
     view = cli.normals_view(log, gt, LioConfig.indoor(), frames=10, device=dev)
-    launches = TKK.LAUNCHES - before
+    launches = TKK.launches() - before
     plain = cli.normals_view(log, gt, LioConfig.indoor(), frames=10, device=dev,
                              force_tiled=True)
-    assert launches > 0 and TKK.LAUNCHES - before == launches
+    assert launches > 0 and TKK.launches() - before == launches
     np.testing.assert_array_equal(view.xyz, plain.xyz)
     np.testing.assert_array_equal(view.map_xyz, plain.map_xyz)
     both = view.ok & plain.ok
@@ -435,10 +439,10 @@ def graph_runs():
         assert pipe.graphs == graphs
         outs, launches = [], []
         for xyz, mask, imu in sweeps:
-            before = TKK.LAUNCHES
+            before = TKK.launches()
             out = pipe.process(xyz, mask, pipe.make_samples(*imu))
             torch.cuda.synchronize()
-            launches.append(TKK.LAUNCHES - before)
+            launches.append(TKK.launches() - before)
             outs.append(tree_map(lambda t: t.cpu() if torch.is_tensor(t) else t, out))
         runs[graphs] = {"outs": outs, "launches": launches, "pipe": pipe,
                         "state": [t.cpu() for t in tree_leaves(pipe.est_state)]}
@@ -495,6 +499,31 @@ def test_count_launches_sees_the_graphs(graph_runs):
 
 
 @pytest.mark.cuda
+def test_graphed_steady_sweeps_make_no_host_sync(graph_runs):
+    """Steady graphed sweeps (a consumed one: one graph launch, the mini-GN's
+    and the LM's exits decided by conditional nodes; and a skipped one) run
+    under ``torch.cuda.set_sync_debug_mode("error")`` without raising, and
+    give the same pose as they did before the mode was set."""
+    pipe = graph_runs[True]["pipe"]
+    assert pipe.graphs and pipe.stage == "INITED"
+    sweeps = _graph_sweeps(pipe.cfg)[-4:]
+    outs = []
+    torch.cuda.synchronize()
+    captures = pipe.graph_captures()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for xyz, mask, imu in sweeps:
+            outs.append(pipe.process(xyz, mask, pipe.make_samples(*imu)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert pipe.graph_captures() == captures
+    assert sum("body_pose" in o for o in outs) >= 1
+    assert sum(bool(o.get("predicted")) for o in outs) >= 1
+    assert all(torch.isfinite(o["laser_pose"].t).all() for o in outs)
+
+
+@pytest.mark.cuda
 def test_capture_meeting_a_host_read_raises(dev):
     """A stretch that reads a tensor back to the host cannot be captured:
     the runner raises (its warm-up ran eagerly) and does not fall back. Run
@@ -517,3 +546,280 @@ def test_capture_meeting_a_host_read_raises(dev):
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=root, timeout=300)
     assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# the Jacobi eigh kernel (csrc/eigh.cu, ops/eigh.py)
+# ---------------------------------------------------------------------------
+
+def _sym_cases(n, seed):
+    """(name, float64 matrix) cases of order ``n``: a Wishart matrix, a
+    graded one (a Wishart's correlation scaled by d_i d_j with d over 15
+    decades, as the Schur complements' bias blocks), a degenerate one with
+    repeated eigenvalues (half zero, the rest in pairs) and a diagonal
+    one."""
+    rng = np.random.default_rng(seed)
+    j = rng.normal(size=(2 * n, n))
+    wish = j.T @ j
+    s = np.sqrt(np.diag(wish))
+    d = 10.0 ** rng.uniform(-3, 12, size=n)
+    graded = wish / np.outer(s, s) * np.sqrt(np.outer(d, d))
+    q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    ev = np.zeros(n)
+    ev[n // 2:] = (np.arange(n - n // 2) // 2 + 1).astype(np.float64)
+    degenerate = q @ np.diag(ev) @ q.T
+    return [("wishart", wish), ("graded", graded), ("degenerate_repeated", degenerate),
+            ("diagonal", np.diag(rng.uniform(-5.0, 5.0, size=n)))]
+
+
+#: eigenvalues within this many float32 ulps of max |lambda| of the float64
+#: truth of the float32-rounded matrix, the reconstruction V diag(l) V^T
+#: within it (relative, Frobenius) and V^T V - I elementwise: Jacobi's
+#: rounding grows with the sweeps (<= 32) and the order (<= 128); with its
+#: vectors in float64 the card measured <= 1.5e-6 and <= 3.5e-6 at n = 128
+#: (``chip_smoke.py`` phase 3).
+#: The float64 kernel: the same in float64 ulps, vectors within 1e-12 (the
+#: CPU rehearsal measured <= 6e-14 at n = 118). Wishart and graded matrices:
+#: each float32 eigenvalue within 1e-4 of the float64 kernel's, relative to
+#: itself (Jacobi's relative accuracy; the CPU rehearsal measured <= 2.1e-5)
+EIGH_VAL_ULPS = 64
+EIGH_VEC_TOL = 2e-4
+EIGH_VEC_TOL64 = 1e-12
+EIGH_SELF_REL = 1e-4
+
+
+def _eigh_against(a, vals, vecs, ref_vals, eps, vec_tol):
+    """Eigenvalues, ascending order, reconstruction and orthogonality of
+    (vals, vecs) of ``a`` against ``ref_vals`` (float64)."""
+    n = a.shape[-1]
+    a64, v64, w64 = a.double(), vals.double(), vecs.double()
+    scale = float(ref_vals.abs().max())
+    err = float((v64 - ref_vals).abs().max())
+    rec = float(torch.linalg.norm(w64 @ torch.diag(v64) @ w64.T - a64)
+                / max(float(torch.linalg.norm(a64)), 1e-30))
+    orth = float((w64.T @ w64 - torch.eye(n, dtype=torch.float64, device=a.device)).abs().max())
+    assert err <= EIGH_VAL_ULPS * eps * scale, (err, scale)
+    assert bool((vals[1:] >= vals[:-1]).all())
+    assert rec <= vec_tol and orth <= vec_tol, (rec, orth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [6, 15, 51, 81, 111, 128])
+def test_eigh_kernel_against_float64(dev, n):
+    """Eigenvalues, reconstruction, orthogonality and ascending order of the
+    kernel against ``torch.linalg.eigh`` in float64 on the same float32
+    matrices; its bits equal ``eigh_jacobi_reference``'s on the card; on
+    Wishart and graded matrices each eigenvalue agrees with the float64
+    kernel's relative to itself; one launch a call, counted."""
+    from lio_mapping_tpu_torch.ops import eigh as TEIGH
+
+    for name, m in _sym_cases(n, n):
+        a = torch.as_tensor(m, dtype=torch.float32, device=dev)
+        before = TEIGH.launches()
+        vals, vecs = TEIGH.eigh(a)
+        torch.cuda.synchronize()
+        assert TEIGH.launches() == before + 1
+        _eigh_against(a, vals, vecs, torch.linalg.eigh(a.double())[0], F32_EPS, EIGH_VEC_TOL)
+        rv, rw, _ = TEIGH.eigh_jacobi_reference(a)
+        assert torch.equal(vals, rv) and torch.equal(vecs, rw), name
+        if name in ("wishart", "graded") and n <= TEIGH.MAX_N_F64:
+            v64, _ = TEIGH.eigh(a.double())
+            rel = float(((vals.double() - v64).abs() / v64.abs()).max())
+            assert rel <= EIGH_SELF_REL, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [6, 51, 111, 118])
+def test_eigh_kernel_float64(dev, n):
+    """The float64 kernel (``tools/debug_corner``'s float64 pipeline) against
+    ``torch.linalg.eigh`` in float64, and its bits against
+    ``eigh_jacobi_reference``'s on the card."""
+    from lio_mapping_tpu_torch.ops import eigh as TEIGH
+
+    for name, m in _sym_cases(n, n):
+        a = torch.as_tensor(m, dtype=torch.float64, device=dev)
+        vals, vecs = TEIGH.eigh(a)
+        assert vals.dtype == vecs.dtype == torch.float64
+        _eigh_against(a, vals, vecs, torch.linalg.eigh(a)[0], 2.0 ** -52, EIGH_VEC_TOL64)
+        rv, rw, _ = TEIGH.eigh_jacobi_reference(a)
+        assert torch.equal(vals, rv) and torch.equal(vecs, rw), name
+
+
+def _step_case(name):
+    """(kind, float32 matrix, extra) of ``tests/test_torch_eigh.py``'s case
+    ``name`` from the same seed, its Schur complements built by the port's
+    ``ops/marginalization`` in float64 on the CPU (the card's test imports
+    no JAX)."""
+    from lio_mapping_tpu_torch.ops import marginalization as TMG
+
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def graded(full, null=4):
+        j = rng.normal(size=(3 * full, full)) * 10.0 ** rng.uniform(0.0, 6.0, size=full)
+        j[:, full - null:] = 0.0
+        return j.T @ j, j.T @ rng.normal(size=3 * full)
+
+    if name == "gn6":
+        j = rng.normal(size=(400, 6)) * np.array([3.0, 3.0, 3.0, 1.0, 1.0, 1.0])
+        j[:, 5] = j[:, 3] + j[:, 4] + 1e-3 * rng.normal(size=400)
+        return "gn", np.float32(j.T @ j), None
+    if name == "eq15":
+        a, _ = graded(15, null=0)
+        a_s, d = TMG.equilibrate(torch.as_tensor(a, dtype=torch.float32))
+        return "pinv", a_s.numpy(), d.numpy()
+    n = {"schur51": 51, "schur111": 111}[name]
+    a, b = graded(15 + n)
+    a_new, b_new = TMG.schur_marginalize(torch.as_tensor(a), torch.as_tensor(b), 15)
+    return "factor", np.float32((0.5 * (a_new + a_new.T)).numpy()), np.float32(b_new.numpy())
+
+
+def _step_invariants(kind, extra, vals, vecs):
+    """What the step makes of (vals, vecs), in float64 on their device:
+    ``tests/test_torch_eigh.py``'s invariants."""
+    from lio_mapping_tpu_torch.ops import gn as TGN
+    from lio_mapping_tpu_torch.ops import marginalization as TMG
+
+    vals, vecs = vals.double(), vecs.double()
+    if kind == "gn":
+        g = TGN.projection_from_eigh(vals, vecs, 100.0)
+        return {"proj": g.proj, "degenerate": bool(g.is_degenerate)}
+    extra = torch.as_tensor(extra, dtype=torch.float64, device=vals.device)
+    if kind == "pinv":
+        return {"pinv": TMG.pinv_from_eigh(vals, vecs, extra, TMG.EPS)}
+    jac, res = TMG.factor_from_eigh(vals, vecs, extra)
+    return {"jtj": jac.T @ jac, "jtr": jac.T @ res}
+
+
+#: ``tests/test_torch_eigh.py``'s tolerances of the Jacobi algorithm's
+#: invariants against the plain version's (relative to the largest entry)
+STEP_TOL = {"proj": 1e-4, "pinv": 1e-3, "jtj": 64 * F32_EPS, "jtr": 1e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gn6", "eq15", "schur51", "schur111"])
+def test_eigh_kernel_holds_the_step_invariants(dev, name):
+    """On the matrices the step decomposes (the degeneracy projection's
+    6x6, the equilibrated 15x15, graded Schur complements with a null
+    gauge), what the step makes of the kernel's decomposition against what
+    it makes of the plain version's: the projector, the pseudo-inverse and
+    J^T J, J^T r of the prior's factor, whose rows the small eigenvalues
+    decide."""
+    from lio_mapping_tpu_torch.ops import eigh as TEIGH
+
+    kind, a32, extra = _step_case(name)
+    a = torch.as_tensor(a32, device=dev)
+    mine = _step_invariants(kind, extra, *TEIGH.eigh(a))
+    plain = _step_invariants(kind, extra, *TEIGH.eigh_plain(a.double()))
+    for key, value in mine.items():
+        if isinstance(value, bool):
+            assert value == plain[key], key
+        else:
+            rel = float((value - plain[key]).abs().max() / plain[key].abs().max())
+            assert rel <= STEP_TOL[key], (key, rel)
+
+
+@pytest.mark.cuda
+def test_eigh_kernel_batches_and_is_deterministic(dev):
+    """A batch of matrices in one launch gives each matrix's own result,
+    and repeated launches give the same bits."""
+    from lio_mapping_tpu_torch.ops import eigh as TEIGH
+
+    mats = torch.stack([torch.as_tensor(m, dtype=torch.float32)
+                        for _, m in _sym_cases(15, 7)]).to(dev)
+    vals, vecs = TEIGH.eigh(mats)
+    for i in range(mats.shape[0]):
+        v1, w1 = TEIGH.eigh(mats[i])
+        assert torch.equal(v1, vals[i]) and torch.equal(w1, vecs[i])
+    for _ in range(3):
+        v2, w2 = TEIGH.eigh(mats)
+        assert torch.equal(v2, vals) and torch.equal(w2, vecs)
+
+
+@pytest.mark.cuda
+def test_eigh_kernel_refuses_what_it_does_not_take(dev):
+    """Above ``MAX_N`` (float32) or ``MAX_N_F64`` (float64), not square, a
+    type other than float32 and float64: raises, nothing falls back."""
+    from lio_mapping_tpu_torch.ops import eigh as TEIGH
+
+    before = TEIGH.launches()
+    for bad in (torch.zeros((TEIGH.MAX_N + 1,) * 2, device=dev),
+                torch.zeros((TEIGH.MAX_N_F64 + 1,) * 2, dtype=torch.float64, device=dev),
+                torch.zeros((4, 5), device=dev),
+                torch.zeros((4, 4), dtype=torch.float16, device=dev)):
+        with pytest.raises(ValueError):
+            TEIGH.eigh(bad)
+    assert TEIGH.launches() == before
+    vals, _ = TEIGH.eigh(torch.eye(4, dtype=torch.float64, device=dev) * 2.0)
+    assert TEIGH.launches() == before + 1
+    assert vals.dtype == torch.float64 and torch.equal(vals, torch.full((4,), 2.0,
+                                                                       dtype=torch.float64,
+                                                                       device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the LU solve kernel (csrc/lu_solve.cu, ops/lu_solve.py)
+# ---------------------------------------------------------------------------
+
+def _damped(n, seed):
+    """An LM-like damped normal-equation system: J^T J over six decades of
+    column scales plus a 1e-4 relative diagonal, and a right-hand side."""
+    rng = np.random.default_rng(seed)
+    j = rng.normal(size=(3 * n, n)) * 10.0 ** rng.uniform(0.0, 3.0, size=n)
+    a = j.T @ j
+    a += 1e-4 * np.diag(np.diag(a))
+    return a, rng.normal(size=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [6, 66, 96, 126, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_lu_solve_kernel_against_float64(dev, n, dtype):
+    """The kernel's x against float64 ``torch.linalg.solve`` on the same
+    rounded system: the residual |A x - b| within 64 ulps of the type times
+    |A| |x| (LU with partial pivoting is backward stable), and the plain
+    version's x (cuSOLVER, same type) within the same error; one launch,
+    counted."""
+    from lio_mapping_tpu_torch.ops import lu_solve as TLU
+
+    a_np, b_np = _damped(n, n)
+    a = torch.as_tensor(a_np, dtype=dtype, device=dev)
+    b = torch.as_tensor(b_np, dtype=dtype, device=dev)
+    before = TLU.launches()
+    x = TLU.solve(a, b)
+    torch.cuda.synchronize()
+    assert TLU.launches() == before + 1 and x.dtype == dtype
+    eps = float(torch.finfo(dtype).eps)
+    a64, b64, x64 = a.double(), b.double(), x.double()
+    res = float((a64 @ x64 - b64).abs().max())
+    scale = float((a64.abs() @ x64.abs()).max())
+    assert res <= 64 * eps * scale, (res, scale)
+    ref = torch.linalg.solve(a64, b64)
+    plain = TLU.solve_plain(a, b).double()
+    err_k = float((x64 - ref).abs().max())
+    err_p = float((plain - ref).abs().max())
+    assert err_k <= max(4 * err_p, 64 * eps * float(ref.abs().max())), (err_k, err_p)
+
+
+@pytest.mark.cuda
+def test_lu_solve_kernel_contract(dev):
+    """Deterministic across launches; a singular system gives non-finite
+    entries; what the kernel does not take raises and launches nothing."""
+    from lio_mapping_tpu_torch.ops import lu_solve as TLU
+
+    a_np, b_np = _damped(126, 3)
+    a = torch.as_tensor(a_np, dtype=torch.float32, device=dev)
+    b = torch.as_tensor(b_np, dtype=torch.float32, device=dev)
+    x = TLU.solve(a, b)
+    for _ in range(3):
+        assert torch.equal(TLU.solve(a, b), x)
+    sing = TLU.solve(torch.zeros((4, 4), device=dev), torch.ones(4, device=dev))
+    assert not bool(torch.isfinite(sing).all())
+    before = TLU.launches()
+    for bad_a, bad_b in ((torch.zeros((129, 129), device=dev), torch.zeros(129, device=dev)),
+                         (torch.zeros((4, 5), device=dev), torch.zeros(4, device=dev)),
+                         (torch.zeros((4, 4), device=dev), torch.zeros((4, 2), device=dev)),
+                         (torch.zeros((4, 4), dtype=torch.float16, device=dev),
+                          torch.zeros(4, dtype=torch.float16, device=dev))):
+        with pytest.raises(ValueError):
+            TLU.solve(bad_a, bad_b)
+    assert TLU.launches() == before

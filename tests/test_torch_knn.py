@@ -402,12 +402,12 @@ def test_cpu_tensors_take_the_plain_version(rng):
     """On the CPU the dispatch runs the plain version and the kernel's launch
     count does not move; the wrapper itself refuses CPU tensors."""
     args = tuple(_t(x) for x in _inputs(rng, n_q=50, n_m=300))  # float32
-    before = TKK.LAUNCHES
+    before = TKK.launches()
     a = TK.knn(*args, k=5, prune_beyond=1.0)
     c = TK.knn_tiled(*args, k=5)
-    assert TKK.LAUNCHES == before
+    assert TKK.launches() == before
     for x, y in zip(a, c):
         np.testing.assert_array_equal(_np(x), _np(y))
     with pytest.raises(ValueError, match="CUDA tensor"):
         TKK.knn_cuda(*args, k=5, prune_beyond=1.0)
-    assert TKK.LAUNCHES == before
+    assert TKK.launches() == before

@@ -273,16 +273,16 @@ def test_counters_count_searches_by_path_live_and_replayed(rng):
     db = torch.as_tensor(rng.normal(size=(300, 3)))
     targets = {"outer": (me, "_outer_search"), "replay": (me, "_replayer")}
     kernel, plain, shapes = {}, {}, {}
-    before = TKK.LAUNCHES
+    before = TKK.launches()
     with launches_by_path(kernel, targets), plain_searches(plain, targets), \
             kernel_shapes(shapes):
         _outer_search(q, db)
         with TKK.recording() as events:
             _outer_search(q, db)
-        assert TKK.LAUNCHES == before + 1 and plain == {"outer": 1}
+        assert TKK.launches() == before + 1 and plain == {"outer": 1}
         for _ in range(3):
             _replayer(events)
-    assert TKK.LAUNCHES == before + 4
+    assert TKK.launches() == before + 4
     assert kernel == {"outer": 4, "replay": 3}
     assert plain == {"outer": 4, "replay": 3}
     assert shapes == {"64x300x5": 4}

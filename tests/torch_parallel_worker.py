@@ -286,11 +286,11 @@ def ring_on_card(rank, world, address, case_dir, q, qm, db, dm, gate):
     mesh = MH.initialize(address, world, rank, device="cuda")
     try:
         lq, lqm, ldb, ldm = MH.shard_rows((q, qm, db, dm), mesh)
-        before = knn_kernel.LAUNCHES
+        before = knn_kernel.launches()
         d, i, _ = MS.ring_knn(lq, lqm, ldb, ldm, k=5, axis=mesh, prune_beyond=gate)
         torch.cuda.synchronize()
         out = {"d": _gather(d, mesh).cpu().numpy(), "i": _gather(i, mesh).cpu().numpy(),
-               "launches": np.asarray(knn_kernel.LAUNCHES - before),
+               "launches": np.asarray(knn_kernel.launches() - before),
                "host_bytes": np.asarray(mesh.host_bytes), "backend": np.asarray(mesh.backend)}
     finally:
         MH.shutdown()
