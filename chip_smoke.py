@@ -28,18 +28,19 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    same loop, the plain version and a library yardstick; the scan-to-map
    corner search (2048 x 65536, pinned to the plain version) is timed too.
    After phase 7, each of the search's kernels under ``torch.profiler``.
-   The Jacobi ``eigh`` kernel against its plain version (float64
-   ``torch.linalg.eigh``) at n = 6, 15, 51, 81, 111 and 128 on Wishart,
-   graded and degenerate matrices, and (after phase 17) on the 6x6, 15x15
-   and 111x111 matrices of a real indoor sweep: eigenvalues, reconstruction,
-   orthogonality, order, two launches' bits and the bits of
-   ``eigh_jacobi_reference`` run on the card; the float64 kernel against
-   the plain version; on Wishart and graded matrices each eigenvalue
-   against the float64 kernel's, relative to itself; on the real sweep's
-   matrices what the step makes of them (the degeneracy projector, the
-   pseudo-inverse, J^T J and J^T r of the prior) against what it makes of
-   the plain version's. Its sweeps, its time, the plain version's and
-   ``torch.linalg.eigh``'s in float32, and its bound (~9 n^3 flops).
+   The ``eigh`` kernel (float64 Householder and implicit QL) against its
+   plain version (float64 ``torch.linalg.eigh``) at n = 6, 15, 51, 81, 111
+   and 128 on Wishart, graded and degenerate matrices, and (after phase 17)
+   on the 6x6, 15x15 and 111x111 matrices of a real indoor sweep:
+   eigenvalues, reconstruction, orthogonality, order, two launches' bits
+   and the bits of ``eigh_tridiag_reference`` run on the card; the float64
+   kernel against the plain version; on Wishart and graded matrices each
+   eigenvalue against the float64 kernel's, relative to itself; on the real
+   sweep's matrices what the step makes of them (the degeneracy projector,
+   the pseudo-inverse, J^T J and J^T r of the prior) against what it makes
+   of the plain version's. Its QL iterations, its time, the plain
+   version's and ``torch.linalg.eigh``'s in float32, and its bound (~9 n^3
+   flops).
    The LU solve kernel against its plain version (``torch.linalg.solve_ex``,
    cuSOLVER) and float64 ``torch.linalg.solve`` at n = 6, 96, 126 and 128
    on damped normal equations and (after phase 17) on the 6x6 and 126x126
@@ -52,13 +53,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    ``models/step_graph.py``; the early exits are conditional nodes). Fails
    unless it ends INITED with ATE RMSE <= 0.35 m, the KNN kernel ran on the
    INITED sweeps, graphs replayed, no decision was read on the host,
-   ``torch.linalg.eigh`` never ran on the card, the Jacobi kernel ran
+   ``torch.linalg.eigh`` never ran on the card, the eigh kernel ran
    three times a consumed sweep and the LU kernel in every consumed sweep.
    Then a few more sweeps (a
    consumed and a skipped one each) under ``torch.profiler``, under the
    CUDA sync-debug mode and under per-stage timers (those on the eager
    step: ``graphs=False`` for that sweep) count launch calls, host syncs
-   and stage times. Phase 17 follows it. Then the same 90 sweeps once
+   and stage times (and the device ms of the eigh and LU kernels beside
+   the sweep's LM iterations and mini-GN rounds). Phase 17 follows it. Then the same 90 sweeps once
    more with the estimator's searches on the plain version (``make_knn5``
    patched here to ``force_tiled``), and once more, eagerly, with the
    step's ``eigh`` on its plain version (float64 cuSOLVER): their INITED
@@ -272,7 +274,7 @@ DEVICE_KERNELS_PER_SEARCH = 2  # bounds, search (csrc/knn.cu; the search merges)
 ONE_THREAD_PER_QUERY_WRAPPER_MS = {"estimator_5nn": 0.9564, "estimator_5nn_gated": 0.6979,
                                    "odometry_surf_1nn": 0.1635, "odometry_corner_1nn": 0.0848}
 F32_EPS = float(np.finfo(np.float32).eps)
-# the Jacobi eigh kernel against float64 torch.linalg.eigh (tests/test_torch_cuda.py):
+# the eigh kernel against float64 torch.linalg.eigh (tests/test_torch_cuda.py):
 # eigenvalues within this many ulps of max |lambda|, reconstruction
 # (relative, Frobenius) and orthogonality within EIGH_VEC_TOL (float32) and
 # EIGH_VEC_TOL64 (the float64 kernel); on Wishart and graded matrices each
@@ -293,6 +295,8 @@ EIGH_ORDERS = (6, 15, 51, 81, 111, 128)
 # the orders the step solves: the mini-GN's 6x6, the window LM's damped
 # system (outdoor_64 15 x 6 + 6, indoor 15 x 8 + 6) and the kernel's limit
 SOLVE_ORDERS = (6, 96, 126, 128)
+# the profiler's names of the eigh and LU kernels (csrc/eigh.cu, csrc/lu_solve.cu)
+LINALG_KERNELS = ("tridiag_eigh_kernel", "lu_solve_kernel")
 
 
 def log(msg: str):
@@ -619,24 +623,24 @@ def eigh_step_invariants(kind, extra, vals, vecs):
 
 
 def check_eigh(name, a, step=None):
-    """The Jacobi kernel on one float32 matrix on the card, against its
+    """The eigh kernel on one float32 matrix on the card, against its
     plain version (``eigh_plain``: float64 ``torch.linalg.eigh``); its bits
-    against ``eigh_jacobi_reference`` run on the card (the same operations);
+    against ``eigh_tridiag_reference`` run on the card (the same operations);
     the float64 kernel against the plain version; on Wishart and graded
     matrices each eigenvalue against the float64 kernel's; with ``step``
     ((kind, extra), a real sweep's matrix) what the step makes of it
     (:func:`eigh_step_invariants`). Fails outside the stated tolerances.
-    Returns its row: errors, sweeps, times (kernel, plain, library:
+    Returns its row: errors, QL iterations, times (kernel, plain, library:
     ``torch.linalg.eigh`` in float32) and bound."""
     n = a.shape[-1]
-    vals, vecs, sweeps = EIGH.eigh_cuda(a, with_sweeps=True)
+    vals, vecs, iters = EIGH.eigh_cuda(a, with_sweeps=True)
     v2, w2 = EIGH.eigh_cuda(a)
     pv, pw = EIGH.eigh_plain(a.double())
-    rv, rw, r_sweeps = EIGH.eigh_jacobi_reference(a)
+    rv, rw, r_iters = EIGH.eigh_tridiag_reference(a)
     torch.cuda.synchronize()
-    sweeps = int(sweeps)
+    iters = int(iters)
     deterministic = torch.equal(vals, v2) and torch.equal(vecs, w2)
-    reference_bits = torch.equal(vals, rv) and torch.equal(vecs, rw) and r_sweeps == sweeps
+    reference_bits = torch.equal(vals, rv) and torch.equal(vecs, rw) and r_iters == iters
     err, scale, rec, orth, ascending = _eigh_errors(a, vals, vecs, pv)
     failed = []
     if not (err <= EIGH_VAL_ULPS * F32_EPS * scale and rec <= EIGH_VEC_TOL
@@ -644,7 +648,7 @@ def check_eigh(name, a, step=None):
         failed.append(f"eigenvalue error {err:.3e} (scale {scale:.3e}), reconstruction "
                       f"{rec:.3e}, orthogonality {orth:.3e}, ascending {ascending}, "
                       f"deterministic {deterministic}, reference bits {reference_bits}")
-    row = {"case": name, "n": n, "sweeps": sweeps, "max_abs_err": err, "scale": scale,
+    row = {"case": name, "n": n, "ql_iterations": iters, "max_abs_err": err, "scale": scale,
            "rel_err": err / max(scale, 1e-30), "reconstruction": rec, "orthogonality": orth,
            "reference_bits": reference_bits}
     if n <= EIGH.MAX_N_F64:
@@ -802,7 +806,7 @@ def feed(pipe, item):
 def library_eigh_calls(counts: dict):
     """Count ``torch.linalg.eigh`` calls on CUDA tensors inside the block
     (``counts["cuda"]``): the port's step makes none (its ``eigh`` is the
-    Jacobi kernel)."""
+    port's kernel, ``csrc/eigh.cu``)."""
     orig = torch.linalg.eigh
 
     def counted(a, *args, **kwargs):
@@ -819,7 +823,7 @@ def library_eigh_calls(counts: dict):
 
 def drive(pipe, seq, paths, plain=None, eigh_by_path=None, solve_by_path=None):
     """Feed ``seq`` to ``pipe`` sweep by sweep, each synchronised and timed,
-    with the KNN kernel's launches counted by path (``paths``; the Jacobi
+    with the KNN kernel's launches counted by path (``paths``; the
     ``eigh`` kernel's and the LU kernel's too, into ``eigh_by_path`` and
     ``solve_by_path``), the plain version's searches by path (``plain``)
     and the kernel's searches by shape. Returns (per-sweep records, laser
@@ -929,7 +933,7 @@ def extra_counts(pipe, seq, stages: bool = True):
         sweep = lambda: feed(pipe, item)  # noqa: E731
         c0 = captures(pipe)
         if j < 2:
-            out, c = count_launches(sweep, DEV)
+            out, c = count_launches(sweep, DEV, match=LINALG_KERNELS)
         elif j < 4:
             out, n_sync = count_syncs(sweep, DEV)
             c = {"host_syncs": n_sync}
@@ -962,7 +966,7 @@ def timed_extras(pipe, seq):
 def main_path(seq, traj, eigh_by_path, solve_by_path):
     """Phase 4 on the default (graphed) pipeline; returns (summary, launches
     by path, the pipeline, its poses). Also fails if ``torch.linalg.eigh``
-    ran on the card, if a host decision was read or if the Jacobi kernel
+    ran on the card, if a host decision was read or if the eigh kernel
     did not run in the estimator's steps."""
     pipe = LioPipeline(LioConfig.indoor(), device=DEV, dtype=torch.float32)
     if not pipe.graphs:
@@ -984,7 +988,7 @@ def main_path(seq, traj, eigh_by_path, solve_by_path):
     if summary["graphs"]["decisions"]:
         raise AssertionError("the graphed step read a decision on the host")
     if eigh_by_path.get("lio_estimator", 0) < 3 * summary["consumed_inited_sweeps"]:
-        raise AssertionError(f"the Jacobi eigh kernel did not run 3 times a consumed sweep: "
+        raise AssertionError(f"the eigh kernel did not run 3 times a consumed sweep: "
                              f"{eigh_by_path}")
     if solve_by_path.get("lio_estimator", 0) < 2 * summary["consumed_inited_sweeps"]:
         raise AssertionError(f"the LU kernel did not run in every consumed sweep: "
@@ -1056,7 +1060,10 @@ def eager_replay(seq, traj, workdir, graphed, g_summary, g_poses):
         return {"launch_calls": launch["runtime_launches"],
                 "graph_launches": launch["graph_launches"],
                 "device_kernels": launch["device_kernels"],
-                "device_busy_ms": launch["device_busy_ms"], "host_syncs": sync["host_syncs"],
+                "device_busy_ms": launch["device_busy_ms"],
+                "linalg_device_ms": {k: ms for k, (_, ms)
+                                     in launch["matched_device_kernels"].items()},
+                "host_syncs": sync["host_syncs"],
                 "wall_ms": walls, "wall_ms_mean": float(np.mean(walls)),
                 "skipped_wall_ms": [r["ms"] for r in timed[name] if not r["consumed"]],
                 "captured": sum(r["captured"] for r in timed[name])
@@ -2067,8 +2074,8 @@ def main():
         "launches": sum(eigh_paths.values()), "launches_by_path": eigh_paths,
         "max_abs_err": e_main["max_abs_err"],
         **{k: e_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "sweeps": e_main["sweeps"],
-        "by_case": {r["case"]: {k: r[k] for k in ("n", "sweeps", "rel_err", "ms", "plain_ms",
+        "ql_iterations": e_main["ql_iterations"],
+        "by_case": {r["case"]: {k: r[k] for k in ("n", "ql_iterations", "rel_err", "ms", "plain_ms",
                                                   "bound_ms", "bound_by", "library_ms")}
                     for r in eigh_rows},
     })

@@ -28,7 +28,7 @@ eagerly (``EagerRun``: the flags read on the host);
 ``models/step_graph.StepGraphs`` captures the whole program as one CUDA
 graph whose bodies are conditional nodes, the port's counterpart of the
 reference's one jitted program per sweep. The three ``eigh`` run on the
-port's Jacobi kernel (``ops/eigh.py``) and the surf searches go through
+port's Householder + QL kernel (``ops/eigh.py``) and the surf searches go through
 ``ops.knn.knn``, which launches the CUDA KNN kernel on the card.
 
 Distributed (``axis``, a ``parallel.multihost.Mesh``; see

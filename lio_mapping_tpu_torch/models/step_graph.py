@@ -35,7 +35,7 @@ as ONE graph per key, and reads nothing back:
   else, and any failure to capture (a host read inside the program),
   raises: the runner never falls back to the eager step;
 * the kernels' launches inside a graph (``ops/launches.py``: the KNN's,
-  the Jacobi ``eigh``'s) are recorded at capture with the Python frames
+  the ``eigh``'s) are recorded at capture with the Python frames
   that made them and counted at each replay; those inside a conditional
   body are counted on the device (one counter a body, bumped by the body)
   and added when the counts are read (``launches.settle``).
@@ -72,7 +72,7 @@ HOST_READS = frozenset({
     "_local_scalar_dense", "_linalg_check_errors", "lift_fresh", "nonzero", "masked_select",
     "bincount", "_unique2", "unique_dim", "unique_consecutive", "repeat_interleave",
     "masked_scatter"})
-#: ``torch.linalg.eigh``'s ops: the program's ``eigh`` is the Jacobi kernel
+#: ``torch.linalg.eigh``'s ops: the program's ``eigh`` is the port's kernel
 EIGH_OPS = frozenset({"_linalg_eigh", "linalg_eigh"})
 #: op -> the functions inside which the guard lets it run: the CPU's plain
 #: ``eigh`` (``torch.linalg.eigh``, which checks LAPACK's status)

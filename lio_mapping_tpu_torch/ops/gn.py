@@ -23,7 +23,7 @@ class GNState(NamedTuple):
 
 def degeneracy_projection(ata: torch.Tensor, eigen_th: float) -> GNState:
     """The degenerate-direction projector from A^T A (iteration 0 only); the
-    ``eigh`` is ``ops/eigh.eigh`` (the Jacobi kernel on the card)."""
+    ``eigh`` is ``ops/eigh.eigh`` (the Householder + QL kernel on the card)."""
     vals, vecs = EIGH.eigh(ata)  # ascending
     return projection_from_eigh(vals, vecs, eigen_th)
 

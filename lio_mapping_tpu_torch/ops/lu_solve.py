@@ -9,7 +9,8 @@ steps). On the card torch's solve goes to cuSOLVER, whose ``getrf``
 allocates stream-ordered memory when it is captured on another stream than
 its last call, and a CUDA graph's conditional body (the LM's iterations
 after the first) may hold no allocation: the graphed step needs a solve of
-its own. The source's note says what bounds it.
+its own. The source's note says what bounds it and how the kernel keeps
+each row of the system in registers.
 
 :func:`solve` launches the kernel for CUDA tensors (float32 or float64,
 ``a`` (n, n) with n <= ``MAX_N``, ``b`` (n,); anything else raises, and
@@ -110,9 +111,10 @@ def solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def lu_solve_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The kernel's algorithm on one system in ``a``'s type, step by step
-    (the first largest pivot, the row swap, the multipliers, the trailing
-    update, the back substitution). A CPU rehearsal of the kernel: it reads
-    its pivots back."""
+    (the first largest pivot in LAPACK's row order, the multipliers, the
+    trailing update, the back substitution; the rows swapped where the
+    kernel records their positions). A CPU rehearsal of the kernel: it
+    reads its pivots back."""
     n = a.shape[0]
     m = torch.cat([a, b[:, None]], dim=1).clone()
     for k in range(n):

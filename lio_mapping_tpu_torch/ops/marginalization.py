@@ -75,7 +75,7 @@ def _rel_tol(dtype) -> float:
 
 
 def _eigh(a: torch.Tensor):
-    """``ops/eigh.eigh``: the Jacobi kernel on the card, on the CPU
+    """``ops/eigh.eigh``: the Householder + QL kernel on the card, on the CPU
     ``torch.linalg.eigh`` (in float64 for a float32 matrix: MKL's float32
     divide-and-conquer refuses some of these Schur complements)."""
     return EIGH.eigh(a)

@@ -9,7 +9,7 @@ a graphed one, whose stages run inside replayed CUDA graphs.
 KNN searches made inside a block: the kernel's launches and the plain
 version's searches to the functions on whose Python stack they were made,
 and the kernel's searches to their shapes (``launches_by_path`` takes
-``kind="eigh"`` for the Jacobi kernel's launches). They listen to
+``kind="eigh"`` for the eigh kernel's launches). They listen to
 ``ops/launches.LISTENERS``, which also hears the launches replayed inside
 the step's CUDA graphs, with the frames that made them at capture, and
 settle the launches the device counted in conditional bodies as the block
@@ -117,7 +117,7 @@ def _listening(kind, targets, counts):
 
 @contextlib.contextmanager
 def launches_by_path(counts, targets, calls=None, kind: str = "kernel"):
-    """Attribute the KNN kernel's launches (``kind="eigh"``: the Jacobi
+    """Attribute the KNN kernel's launches (``kind="eigh"``: the eigh
     kernel's) to the path that made them: a launch made (or, in a CUDA
     graph, captured) inside a call of the (module, function)
     ``targets[name]`` adds one to ``counts[name]``; with ``calls``, each

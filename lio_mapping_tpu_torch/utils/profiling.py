@@ -93,13 +93,14 @@ KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKerne
 GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
 
 
-def count_launches(fn, device):
+def count_launches(fn, device, match=()):
     """(``fn()``, counts): launch calls (``runtime_launches``: kernels and
     CUDA graphs, also apart as ``kernel_launch_calls`` and
     ``graph_launches``), the device kernels that ran (those inside the
     graphs too), device busy time and the kernels that took most of it, for
     one call of ``fn`` (torch.profiler; its overhead inflates
-    ``wall_ms``)."""
+    ``wall_ms``); ``matched_device_kernels``: [count, ms] of the kernels
+    whose name holds each string of ``match``."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = _cuda(device, "count_launches")
@@ -121,7 +122,9 @@ def count_launches(fn, device):
             rec[0] += 1
             rec[1] += evt.time_range.elapsed_us() / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
-    return out, {"runtime_launches": n_launch + n_graph, "kernel_launch_calls": n_launch,
+    matched = {m: [sum(c for name, (c, _) in by_kernel.items() if m in name),
+                   sum(ms for name, (_, ms) in by_kernel.items() if m in name)] for m in match}
+    return out, {"matched_device_kernels": matched, "runtime_launches": n_launch + n_graph, "kernel_launch_calls": n_launch,
                  "graph_launches": n_graph,
                  "device_kernels": sum(c for c, _ in by_kernel.values()),
                  "device_busy_ms": sum(ms for _, ms in by_kernel.values()), "wall_ms": wall_ms,

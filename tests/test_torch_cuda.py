@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: the KNN kernel against its plain
-version (float32), the Jacobi ``eigh`` kernel against float64
-``torch.linalg.eigh``, and the graphed INITED step (one CUDA graph a
+version (float32), the ``eigh`` kernel (float64 Householder and implicit
+QL) against float64 ``torch.linalg.eigh`` and bit for bit against its
+step-by-step reference, the LU solve kernel against float64
+``torch.linalg.solve``, and the graphed INITED step (one CUDA graph a
 consumed sweep, conditional nodes for the early exits) against the eager
 one.
 
@@ -549,7 +551,7 @@ def test_capture_meeting_a_host_read_raises(dev):
 
 
 # ---------------------------------------------------------------------------
-# the Jacobi eigh kernel (csrc/eigh.cu, ops/eigh.py)
+# the eigh kernel (csrc/eigh.cu, ops/eigh.py)
 # ---------------------------------------------------------------------------
 
 def _sym_cases(n, seed):
@@ -574,14 +576,13 @@ def _sym_cases(n, seed):
 
 #: eigenvalues within this many float32 ulps of max |lambda| of the float64
 #: truth of the float32-rounded matrix, the reconstruction V diag(l) V^T
-#: within it (relative, Frobenius) and V^T V - I elementwise: Jacobi's
-#: rounding grows with the sweeps (<= 32) and the order (<= 128); with its
-#: vectors in float64 the card measured <= 1.5e-6 and <= 3.5e-6 at n = 128
-#: (``chip_smoke.py`` phase 3).
+#: within it (relative, Frobenius) and V^T V - I elementwise (the kernel
+#: works in float64 and rounds its outputs to float32 once).
 #: The float64 kernel: the same in float64 ulps, vectors within 1e-12 (the
-#: CPU rehearsal measured <= 6e-14 at n = 118). Wishart and graded matrices:
+#: CPU rehearsal measured <= 6e-15 at n = 128). Wishart and graded matrices:
 #: each float32 eigenvalue within 1e-4 of the float64 kernel's, relative to
-#: itself (Jacobi's relative accuracy; the CPU rehearsal measured <= 2.1e-5)
+#: itself (both entry points run the same float64 arithmetic on the same
+#: values, so they differ by the float32 rounding of the outputs)
 EIGH_VAL_ULPS = 64
 EIGH_VEC_TOL = 2e-4
 EIGH_VEC_TOL64 = 1e-12
@@ -608,7 +609,7 @@ def _eigh_against(a, vals, vecs, ref_vals, eps, vec_tol):
 def test_eigh_kernel_against_float64(dev, n):
     """Eigenvalues, reconstruction, orthogonality and ascending order of the
     kernel against ``torch.linalg.eigh`` in float64 on the same float32
-    matrices; its bits equal ``eigh_jacobi_reference``'s on the card; on
+    matrices; its bits equal ``eigh_tridiag_reference``'s on the card; on
     Wishart and graded matrices each eigenvalue agrees with the float64
     kernel's relative to itself; one launch a call, counted."""
     from lio_mapping_tpu_torch.ops import eigh as TEIGH
@@ -620,7 +621,7 @@ def test_eigh_kernel_against_float64(dev, n):
         torch.cuda.synchronize()
         assert TEIGH.launches() == before + 1
         _eigh_against(a, vals, vecs, torch.linalg.eigh(a.double())[0], F32_EPS, EIGH_VEC_TOL)
-        rv, rw, _ = TEIGH.eigh_jacobi_reference(a)
+        rv, rw, _ = TEIGH.eigh_tridiag_reference(a)
         assert torch.equal(vals, rv) and torch.equal(vecs, rw), name
         if name in ("wishart", "graded") and n <= TEIGH.MAX_N_F64:
             v64, _ = TEIGH.eigh(a.double())
@@ -629,11 +630,11 @@ def test_eigh_kernel_against_float64(dev, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [6, 51, 111, 118])
+@pytest.mark.parametrize("n", [6, 51, 111, 128])
 def test_eigh_kernel_float64(dev, n):
     """The float64 kernel (``tools/debug_corner``'s float64 pipeline) against
-    ``torch.linalg.eigh`` in float64, and its bits against
-    ``eigh_jacobi_reference``'s on the card."""
+    ``torch.linalg.eigh`` in float64 up to its largest order, and its bits
+    against ``eigh_tridiag_reference``'s on the card."""
     from lio_mapping_tpu_torch.ops import eigh as TEIGH
 
     for name, m in _sym_cases(n, n):
@@ -641,7 +642,7 @@ def test_eigh_kernel_float64(dev, n):
         vals, vecs = TEIGH.eigh(a)
         assert vals.dtype == vecs.dtype == torch.float64
         _eigh_against(a, vals, vecs, torch.linalg.eigh(a)[0], 2.0 ** -52, EIGH_VEC_TOL64)
-        rv, rw, _ = TEIGH.eigh_jacobi_reference(a)
+        rv, rw, _ = TEIGH.eigh_tridiag_reference(a)
         assert torch.equal(vals, rv) and torch.equal(vecs, rw), name
 
 
@@ -690,7 +691,7 @@ def _step_invariants(kind, extra, vals, vecs):
     return {"jtj": jac.T @ jac, "jtr": jac.T @ res}
 
 
-#: ``tests/test_torch_eigh.py``'s tolerances of the Jacobi algorithm's
+#: ``tests/test_torch_eigh.py``'s tolerances of the kernel's algorithm's
 #: invariants against the plain version's (relative to the largest entry)
 STEP_TOL = {"proj": 1e-4, "pinv": 1e-3, "jtj": 64 * F32_EPS, "jtr": 1e-3}
 
@@ -716,6 +717,30 @@ def test_eigh_kernel_holds_the_step_invariants(dev, name):
         else:
             rel = float((value - plain[key]).abs().max() / plain[key].abs().max())
             assert rel <= STEP_TOL[key], (key, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_eigh_kernel_on_tiny_blocks(dev, dtype):
+    """Blocks 1e-150 and 1e-160 of the matrix's scale (a near-null space
+    reduced below the square root of the least normal number, as a real
+    sweep's Schur complement gave): finite, the reference's bits, and
+    eigenvalues within 64 ulps of the type of the plain version's."""
+    from lio_mapping_tpu_torch.ops import eigh as TEIGH
+
+    rng = np.random.default_rng(5)
+    m = np.zeros((40, 40))
+    for lo, hi, scale in ((0, 32, 1.0), (32, 36, 1e-150), (36, 40, 1e-160)):
+        j = rng.normal(size=(2 * (hi - lo), hi - lo))
+        m[lo:hi, lo:hi] = scale * (j.T @ j)
+    a = torch.as_tensor(m, dtype=dtype, device=dev)
+    vals, vecs = TEIGH.eigh(a)
+    assert bool(torch.isfinite(vals).all()) and bool(torch.isfinite(vecs).all())
+    rv, rw, _ = TEIGH.eigh_tridiag_reference(a)
+    assert torch.equal(vals, rv) and torch.equal(vecs, rw)
+    pv = torch.linalg.eigh(a.double())[0]
+    eps = float(torch.finfo(dtype).eps)
+    assert float((vals.double() - pv).abs().max()) <= EIGH_VAL_ULPS * eps * float(pv.abs().max())
 
 
 @pytest.mark.cuda
@@ -798,6 +823,24 @@ def test_lu_solve_kernel_against_float64(dev, n, dtype):
     err_k = float((x64 - ref).abs().max())
     err_p = float((plain - ref).abs().max())
     assert err_k <= max(4 * err_p, 64 * eps * float(ref.abs().max())), (err_k, err_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 9, 16, 17, 33, 64, 65])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_lu_solve_kernel_every_width(dev, n, dtype):
+    """Each padded width the kernel is built for (8, 16, 32, 64, 128; four
+    threads a row for float64 at 128) at its edges: the residual within 64
+    ulps of |A| |x|, as above."""
+    from lio_mapping_tpu_torch.ops import lu_solve as TLU
+
+    a_np, b_np = _damped(n, 100 + n)
+    a = torch.as_tensor(a_np, dtype=dtype, device=dev)
+    b = torch.as_tensor(b_np, dtype=dtype, device=dev)
+    x = TLU.solve(a, b).double()
+    res = float((a.double() @ x - b.double()).abs().max())
+    scale = float((a.double().abs() @ x.abs()).max())
+    assert res <= 64 * float(torch.finfo(dtype).eps) * scale, (res, scale)
 
 
 @pytest.mark.cuda

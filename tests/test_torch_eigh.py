@@ -1,8 +1,9 @@
 """The step's symmetric eigendecompositions (``lio_mapping_tpu_torch/ops/eigh.py``)
 on the CPU: the plain version against the reference package's
-``jnp.linalg.eigh``, and the Jacobi kernel's algorithm rehearsed in torch
-(``eigh_jacobi_reference``) against the plain version, on the matrices the
-step decomposes, made from a numpy seed:
+``jnp.linalg.eigh``, and the kernel's algorithm rehearsed step by step
+(``eigh_tridiag_reference``: a float64 Householder tridiagonalization and
+implicit QL) against the plain version, on the matrices the step
+decomposes, made from a numpy seed:
 
 * ``gn6``: the mini-GN's 6x6 normal equations with one near-null direction
   (a column that nearly repeats two others): the degeneracy projection;
@@ -20,14 +21,21 @@ and ``J^T J``, ``J^T r`` of ``MG.factor_from_eigh``. Tolerances, each
 relative to the matrix's largest eigenvalue (or the product's largest
 entry): the plain version (float64 ``eigh`` of the float32 matrix) against
 the reference's float64 ``eigh`` of the same matrix within 1e-9; the
-Jacobi rehearsal (float32 arithmetic) against the plain version within 64
-float32 ulps for eigenvalues and ``J^T J``, 1e-4 for the projector and the
-reconstruction, and 1e-3 for the pseudo-inverse and ``J^T r`` (the
-float32 rounding of the eigenvectors, amplified by the inverted small
-eigenvalues). The rehearsal in float64 (the float64 kernel's algorithm)
-against the plain version in float64: eigenvalues within 64 float64 ulps,
-vectors within 1e-12 and the invariants within 1e-9.
+rehearsal on the float32 matrix (float64 arithmetic, outputs rounded to
+float32) against the plain version within 64 float32 ulps for eigenvalues
+and ``J^T J``, 1e-4 for the projector and the reconstruction, and 1e-3 for
+the pseudo-inverse and ``J^T r`` (the float32 rounding of the
+eigenvectors, amplified by the inverted small eigenvalues). The rehearsal
+on the float64 matrix (the float64 kernel's) against the plain version in
+float64: eigenvalues within 64 float64 ulps, vectors within 1e-12 and the
+invariants within 1e-9. Its stages alone: the reduction gives Q T Q^T = A
+within 1e-12 (relative, Frobenius) and an orthogonal Q within 1e-13; QL on
+a tridiagonal with a four-fold zero eigenvalue and a tight cluster gives
+float64 ``torch.linalg.eigh``'s eigenvalues within 64 float64 ulps and its
+projectors onto the null space and the cluster within 1e-12.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -139,21 +147,21 @@ def test_plain_eigh_matches_the_reference(name):
 
 
 @pytest.mark.parametrize("name", CASES)
-def test_jacobi_reference_matches_plain(name):
-    """The kernel's algorithm (round-robin pairs, the relative rotation
-    test, float32 arithmetic) against the plain version on the same
-    float32 matrix: eigenvalues, reconstruction, orthogonality, order and
-    the step's invariants."""
+def test_tridiag_reference_matches_plain(name):
+    """The kernel's algorithm (float64 Householder and implicit QL, outputs
+    rounded to float32) against the plain version on the same float32
+    matrix: eigenvalues, reconstruction, orthogonality, order and the
+    step's invariants."""
     kind, a32, extra = _case(name)
     a = torch.as_tensor(a32)
-    vals, vecs, sweeps = TEIGH.eigh_jacobi_reference(a)
-    assert vals.dtype == torch.float32 and 1 <= sweeps <= TEIGH.MAX_SWEEPS
+    vals, vecs, iters = TEIGH.eigh_tridiag_reference(a)
+    n = a.shape[0]
+    assert vals.dtype == torch.float32 and 1 <= iters <= TEIGH.MAX_ITERS * n
     pv, pw = TEIGH.eigh_plain(a.double())
     scale = float(pv.abs().max())
     assert float((vals.double() - pv).abs().max()) <= 64 * F32_EPS * scale
     assert bool((vals[1:] >= vals[:-1]).all())
     v64, w64 = vals.double(), vecs.double()
-    n = a.shape[0]
     a64 = a.double()
     rec = float(torch.linalg.norm(w64 @ torch.diag(v64) @ w64.T - a64) / torch.linalg.norm(a64))
     assert rec <= 1e-4
@@ -169,20 +177,20 @@ def test_jacobi_reference_matches_plain(name):
 
 
 @pytest.mark.parametrize("name", CASES)
-def test_jacobi_reference_float64_matches_plain(name):
-    """The kernel's algorithm in float64 (the type of ``tools/debug_corner``'s
-    pipeline) against the plain version on the same matrix in float64:
-    eigenvalues within 64 float64 ulps of the largest, reconstruction and
-    orthogonality within 1e-12, ascending order, and the step's invariants
-    within 1e-9."""
+def test_tridiag_reference_float64_matches_plain(name):
+    """The kernel's algorithm on a float64 matrix (the type of
+    ``tools/debug_corner``'s pipeline) against the plain version on the same
+    matrix: eigenvalues within 64 float64 ulps of the largest,
+    reconstruction and orthogonality within 1e-12, ascending order, and the
+    step's invariants within 1e-9."""
     kind, a32, extra = _case(name)
     a = torch.as_tensor(a32, dtype=torch.float64)
-    vals, vecs, sweeps = TEIGH.eigh_jacobi_reference(a)
-    assert vals.dtype == torch.float64 and 1 <= sweeps <= TEIGH.MAX_SWEEPS
+    vals, vecs, iters = TEIGH.eigh_tridiag_reference(a)
+    n = a.shape[0]
+    assert vals.dtype == torch.float64 and 1 <= iters <= TEIGH.MAX_ITERS * n
     pv, pw = TEIGH.eigh_plain(a)
     assert float((vals - pv).abs().max()) <= 64 * 2.0 ** -52 * float(pv.abs().max())
     assert bool((vals[1:] >= vals[:-1]).all())
-    n = a.shape[0]
     rec = float(torch.linalg.norm(vecs @ torch.diag(vals) @ vecs.T - a) / torch.linalg.norm(a))
     assert rec <= 1e-12
     assert float((vecs.T @ vecs - torch.eye(n, dtype=torch.float64)).abs().max()) <= 1e-12
@@ -193,6 +201,89 @@ def test_jacobi_reference_float64_matches_plain(name):
             assert value == plain[key], key
         else:
             assert _rel(value, plain[key]) <= 1e-9, (key, _rel(value, plain[key]))
+
+
+def _tridiagonal(d, e):
+    n = len(d)
+    t = torch.diag(torch.tensor(d, dtype=torch.float64))
+    off = torch.tensor(e[:n - 1], dtype=torch.float64)
+    return t + torch.diag(off, 1) + torch.diag(off, -1)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_householder_reduction_alone(name):
+    """The kernel's first stage on the float64 matrix: Q T Q^T equals the
+    (scaled) matrix within 1e-12 relative (Frobenius) and Q is orthogonal
+    within 1e-13 elementwise; the scale is a power of two that brings the
+    largest |a_ij| into [0.5, 1)."""
+    _, a32, _ = _case(name)
+    a = torch.as_tensor(a32, dtype=torch.float64)
+    d, e, q, unscale = TEIGH.householder_reference(a)
+    n = a.shape[0]
+    assert math.frexp(unscale)[0] == 0.5
+    assert 0.5 <= float(a.abs().max()) / unscale < 1.0
+    rec = q @ _tridiagonal(d, e) @ q.T * unscale
+    assert float(torch.linalg.norm(rec - a) / torch.linalg.norm(a)) <= 1e-12
+    assert float((q.T @ q - torch.eye(n, dtype=torch.float64)).abs().max()) <= 1e-13
+
+
+def test_ql_alone_on_a_null_space_and_a_cluster():
+    """The kernel's QL stage on a tridiagonal whose spectrum has a
+    four-fold zero eigenvalue (the prior's gauge) and a cluster of five
+    eigenvalues 1e-9 apart: eigenvalues against float64
+    ``torch.linalg.eigh`` of the same tridiagonal within 64 float64 ulps
+    of the largest, the rotations' product orthogonal within 1e-13, and the
+    basis-free invariants (the projectors onto the null space and onto the
+    cluster) within 1e-12."""
+    rng = np.random.default_rng(12)
+    n = 40
+    lam = np.concatenate([np.zeros(4), 1.0 + 1e-9 * np.arange(5), rng.uniform(2.0, 50.0, n - 9)])
+    basis, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    a = torch.as_tensor(basis @ np.diag(lam) @ basis.T)
+    d, e, _, _ = TEIGH.householder_reference(a)
+    t = _tridiagonal(d, e)
+    z = np.eye(n)
+    iters = TEIGH.ql_reference(d, e, z)
+    assert 1 <= iters <= TEIGH.MAX_ITERS * n
+    z = torch.as_tensor(z)
+    d = torch.tensor(d, dtype=torch.float64)
+    order = torch.argsort(d, stable=True)
+    vals, vecs = d[order], z[:, order]
+    pv, pw = torch.linalg.eigh(t)
+    assert float((vals - pv).abs().max()) <= 64 * 2.0 ** -52 * float(pv.abs().max())
+    assert float((vecs.T @ vecs - torch.eye(n, dtype=torch.float64)).abs().max()) <= 1e-13
+    for block in (slice(0, 4), slice(4, 9)):
+        mine = vecs[:, block] @ vecs[:, block].T
+        plain = pw[:, block] @ pw[:, block].T
+        assert float((mine - plain).abs().max()) <= 1e-12, block
+
+
+def _tiny_blocks(seed: int = 5):
+    """A 40x40 float64 matrix: a Wishart block beside blocks scaled by
+    1e-150 and 1e-160 (a near-null space that reduces to entries below the
+    square root of the least normal number, as a real sweep's Schur
+    complement did)."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((40, 40))
+    for lo, hi, scale in ((0, 32, 1.0), (32, 36, 1e-150), (36, 40, 1e-160)):
+        j = rng.normal(size=(2 * (hi - lo), hi - lo))
+        out[lo:hi, lo:hi] = scale * (j.T @ j)
+    return out
+
+
+def test_tridiag_reference_on_tiny_blocks():
+    """Entries far below eps |A| (1e-150, 1e-160 of |A|) take the rotation's
+    scaled path or deflate at LAPACK's safe minimum: finite eigenvalues
+    within 64 float64 ulps of the plain version's, reconstruction and
+    orthogonality within 1e-12."""
+    a = torch.as_tensor(_tiny_blocks())
+    vals, vecs, iters = TEIGH.eigh_tridiag_reference(a)
+    assert bool(torch.isfinite(vals).all()) and bool(torch.isfinite(vecs).all())
+    pv, _ = TEIGH.eigh_plain(a)
+    assert float((vals - pv).abs().max()) <= 64 * 2.0 ** -52 * float(pv.abs().max())
+    rec = float(torch.linalg.norm(vecs @ torch.diag(vals) @ vecs.T - a) / torch.linalg.norm(a))
+    assert rec <= 1e-12
+    assert float((vecs.T @ vecs - torch.eye(40, dtype=torch.float64)).abs().max()) <= 1e-12
 
 
 def test_gn6_is_degenerate_and_schur_carries_its_gauge():

@@ -25,6 +25,7 @@ non-zero on any difference or without CUDA.
 from __future__ import annotations
 
 import argparse
+import importlib
 import importlib.util
 import json
 import os
@@ -38,11 +39,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def load_wrapper(root: str, name: str):
-    path = os.path.join(root, "lio_mapping_tpu_torch", "ops", "knn_kernel.py")
-    spec = importlib.util.spec_from_file_location(name, path)
+    """``ops/knn_kernel.py`` of the package under ``root``, imported with
+    its package as the top-level package ``name`` (the wrapper imports its
+    siblings relatively)."""
+    pkg = os.path.join(root, "lio_mapping_tpu_torch")
+    spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
+                                                  submodule_search_locations=[pkg])
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return mod
+    return importlib.import_module(f"{name}.ops.knn_kernel")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -115,7 +121,7 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"device": smi}), flush=True)
 
-    main_cases = chip_smoke.knn_cases(chip_smoke.sim_trajectory(), LioConfig.indoor())
+    main_cases, _ = chip_smoke.knn_cases(chip_smoke.sim_trajectory(), LioConfig.indoor())
     cases = main_cases + extra_cases(dev)
     n_bad = 0
     n_rows = 0
