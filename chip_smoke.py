@@ -48,9 +48,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    times and bound;
 4. the main path: ``LioPipeline(LioConfig.indoor(), device="cuda")`` in
    float32 over a simulated 90-sweep indoor sequence (the ``cli simulate``
-   defaults), from a cold start through INITED, each consumed INITED sweep
-   one CUDA graph and each skipped one another (the default on the card,
-   ``models/step_graph.py``; the early exits are conditional nodes). Fails
+   defaults), from a cold start through INITED, each bootstrap sweep (front
+   end and odometry, with or without the init window's push) one CUDA
+   graph, each consumed INITED sweep one and each skipped one another (the
+   default on the card, ``models/step_graph.py``; the GNs' and the LM's
+   early exits are conditional nodes). The bootstrap's times are printed
+   apart: ordinary sweeps, init-attempt sweeps and capture sweeps. Fails
    unless it ends INITED with ATE RMSE <= 0.35 m, the KNN kernel ran on the
    INITED sweeps, graphs replayed, no decision was read on the host,
    ``torch.linalg.eigh`` never ran on the card, the eigh kernel ran
@@ -75,8 +78,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    (within 1e-4 m, |q.q'| > 1 - 1e-6), the same map voxel count, and the
    kernel launched in phase B;
 7. ``run --mode loam`` on the same log, in this process so that the
-   kernel's launches are counted by path, then ``evaluate``. Fails above
-   0.05 m ATE RMSE or if the kernel did not run in the scan-to-map search;
+   kernel's launches are counted by path, then ``evaluate``; graphed (a
+   mapped and an associated sweep one CUDA graph each), then again with
+   ``graphs=False``, each sweep timed and the host syncs of six steady
+   sweeps counted. Fails above 0.05 m ATE RMSE, if the kernel did not run
+   in the scan-to-map search, if a steady graphed sweep made a host sync,
+   or unless both runs' poses and final states (sha256) are equal;
 8. ``LioPipeline(LioConfig.outdoor_64())`` (KITTI HDL-64 profile, shipped
    capacities; identity ``extrinsic_rotation`` and zero
    ``extrinsic_translation``, the synthetic rig's truth) over 60 simulated
@@ -92,7 +99,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 10. ``run --enable-4d --out-4d --timing`` on phase 5's log, in this
    process: the LIO poses equal phase 5's, one 4D pose per consumed INITED
    sweep, 4D ATE RMSE < max(2 x the LIO ATE, 0.3 m) (the reference's rule),
-   and the builder's surf search launched the kernel;
+   and the builder's surf search launched the kernel. The builder's steps
+   (one CUDA graph each) are timed, four of them with their host syncs
+   counted (0 expected), and run once more on a ``graphs=False`` builder on
+   the same inputs: poses and final state bit for bit;
 11. the outdoor (KAIST rig) profile through the CLI as subprocesses:
    ``simulate --extrinsic-translation -2.4 0 0.7``, ``run --profile
    outdoor``, ``evaluate``, held as phase 5 is, against the JAX package's
@@ -154,7 +164,11 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    are counted, and both paths' launch calls, graph launches, host syncs,
    wall and device-busy ms per consumed sweep, the graphs' memory, and
    phase 4's captures and steady mean are printed; fails unless a steady
-   graphed consumed sweep made 0 host syncs and 1 graph launch.
+   graphed consumed sweep made 0 host syncs and 1 graph launch. Then a
+   fresh graphed and a fresh ``graphs=False`` pipeline take the sequence's
+   first 18 sweeps, the last 6 (a push among them, no init attempt)
+   counted: launch calls, graph launches, host syncs and device busy ms;
+   fails unless each graphed one made 1 graph launch and 0 host syncs.
 
 The counters and timers (``timed``, ``count_launches``, ...) are
 ``lio_mapping_tpu_torch/utils/profiling.py``'s; those that know the
@@ -218,6 +232,7 @@ from lio_mapping_tpu_torch.ops import voxel as VX  # noqa: E402
 from lio_mapping_tpu_torch.utils.profiling import (  # noqa: E402
     count_launches, count_syncs, cuda_ms, device_kernel_ms, timed)
 from lio_mapping_tpu_torch.utils.se3 import Pose  # noqa: E402
+from lio_mapping_tpu_torch.utils.tree import tree_leaves  # noqa: E402
 from lio_mapping_tpu_torch.tools import last_json  # noqa: E402
 from lio_mapping_tpu_torch.tools.profiling import (  # noqa: E402
     kernel_shapes, launches_by_path, plain_searches, stage_breakdown)
@@ -226,10 +241,14 @@ DEV = torch.device("cuda")
 SEED = 0
 N_SWEEPS = 90          # the verify recipe's sequence length
 N_EXTRA = 6            # sweeps after the main run: launches, syncs, stage times
+N_BOOT_WARM = 12       # bootstrap sweeps before the counted ones (both graphs captured)
+N_BOOT_COUNTED = 6     # bootstrap sweeps counted (launches and syncs), a push among them
 SCAN_DT = 0.1
 IMU_RATE = 200.0
 ATE_LIMIT = 0.35       # m: twice the reference's 0.1765 m on this sequence
 LOAM_ATE_LIMIT = 0.05  # m: 2.4x the reference's 0.021 m (LOAM) on this sequence
+LOAM_SYNC_SWEEPS = range(20, 26)   # phase 7's sweeps whose host syncs are counted
+BUILDER_SYNC_STEPS = range(2, 6)   # phase 10's builder steps whose host syncs are counted
 # the JAX package on the CPU in float32 on exactly these sequences
 # (tools/reference_ate_cpu.py); each limit is twice the reference's ATE
 N_O64 = 60             # outdoor_64 sweeps: 24 fill the window, ~12 consumed INITED after
@@ -839,12 +858,22 @@ def drive(pipe, seq, paths, plain=None, eigh_by_path=None, solve_by_path=None):
     knn_kernel.reset_launches()
     EIGH.reset_launches()
     LU.reset_launches()
+    # the bootstrap's init attempts (host float64 numpy, reads the window back)
+    attempts = [0]
+    try_init = pipe._try_initialize
+
+    def counted_try():
+        attempts[0] += 1
+        return try_init()
+
+    pipe._try_initialize = counted_try
     t_run = time.perf_counter()
     with launches_by_path(by_path, paths), plain_searches(plain_counts, plain or {}), \
             kernel_shapes(shapes), launches_by_path(eigh_by_path, paths, kind="eigh"), \
             launches_by_path(solve_by_path, paths, kind="solve"):
         for i, item in enumerate(seq):
             before = knn_kernel.launches()
+            a0, c0 = attempts[0], captures(pipe)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = feed(pipe, item)
@@ -853,11 +882,13 @@ def drive(pipe, seq, paths, plain=None, eigh_by_path=None, solve_by_path=None):
             poses.append(out["laser_pose"])
             recs.append({"i": i, "stage": out["stage"], "consumed": "body_pose" in out,
                          "predicted": bool(out.get("predicted", False)), "s": dt,
+                         "attempt": attempts[0] > a0, "captured": captures(pipe) - c0,
                          "knn": knn_kernel.launches() - before,
                          "lm": int(out["solver_iterations"]) if "solver_iterations" in out
                          else None,
                          "gn": int(out["newest_rounds"]) if "newest_rounds" in out else None})
     run_s = time.perf_counter() - t_run
+    del pipe._try_initialize
     if sum(by_path.values()) != knn_kernel.launches():
         raise AssertionError(f"launches by path {by_path} do not add up to {knn_kernel.launches()}")
     for kind, counted, total in (("eigh", eigh_by_path, EIGH.launches()),
@@ -901,11 +932,29 @@ def summarize(recs, poses, seq, traj, by_path, run_s):
         if any(r["predicted"] for r in steady_all) else None,
         "bootstrap_ms_mean": 1e3 * float(np.mean([r["s"] for r in recs
                                                   if r["stage"] == "NOT_INITED"])),
+        **bootstrap_split(recs),
         "lm_iterations_mean": float(np.mean([r["lm"] for r in consumed])) if consumed else None,
         "gn_rounds_mean": float(np.mean([r["gn"] for r in consumed])) if consumed else None,
         "lm_iterations": [r["lm"] for r in consumed], "gn_rounds": [r["gn"] for r in consumed],
         "run_s": run_s,
     }
+
+
+def bootstrap_split(recs) -> dict:
+    """The bootstrap sweeps (up to the one that reaches INITED) apart: those
+    that capture a graph, those that make an init attempt (host float64
+    numpy, which reads the window back), and the ordinary rest."""
+    boot = recs[:next((r["i"] + 1 for r in recs if r["stage"] == "INITED"), len(recs))]
+
+    def ms(rows):
+        return 1e3 * float(np.mean([r["s"] for r in rows])) if rows else None
+
+    ordinary = [r for r in boot if not r["attempt"] and not r["captured"]]
+    attempts = [r for r in boot if r["attempt"] and not r["captured"]]
+    return {"bootstrap_sweeps": len(boot), "bootstrap_ordinary_ms_mean": ms(ordinary),
+            "bootstrap_ordinary_sweeps": len(ordinary),
+            "bootstrap_attempt_ms_mean": ms(attempts), "bootstrap_attempts": len(attempts),
+            "bootstrap_capture_ms": [1e3 * r["s"] for r in boot if r["captured"]]}
 
 
 def eager_stages(pipe, sweep):
@@ -920,8 +969,7 @@ def eager_stages(pipe, sweep):
 
 
 def captures(pipe) -> int:
-    g = pipe._step_graphs
-    return 0 if g is None else g.stats["captures"]
+    return pipe.graph_captures()
 
 
 def extra_counts(pipe, seq, stages: bool = True):
@@ -971,7 +1019,7 @@ def main_path(seq, traj, eigh_by_path, solve_by_path):
     pipe = LioPipeline(LioConfig.indoor(), device=DEV, dtype=torch.float32)
     if not pipe.graphs:
         raise AssertionError("the pipeline on the card does not default to CUDA graphs")
-    paths = {"lio_estimator": (EST, "step_program"), "lio_odometry": (ODO, "odometry_step")}
+    paths = {"lio_estimator": (EST, "step_program"), "lio_odometry": (ODO, "odometry_program")}
     with library_eigh_calls({}) as lib_eigh:
         recs, poses, by_path, _, _, run_s = drive(pipe, seq[:N_SWEEPS], paths,
                                                   eigh_by_path=eigh_by_path,
@@ -1024,7 +1072,7 @@ def eager_replay(seq, traj, workdir, graphed, g_summary, g_poses):
             last_inputs(MG, "factorize_prior", matrices["prior"]):
         recs, poses, by_path, _, _, run_s = drive(
             pipe, seq[:N_SWEEPS], {"lio_estimator_eager": (EST, "step_program"),
-                                   "lio_odometry_eager": (ODO, "odometry_step")},
+                                   "lio_odometry_eager": (ODO, "odometry_program")},
             eigh_by_path=eigh_by_path, solve_by_path=solve_by_path)
     summary = summarize(recs, poses, seq[:N_SWEEPS], traj, by_path, run_s)
     summary["state_sha256"] = cli._state_digest(pipe)
@@ -1083,7 +1131,46 @@ def eager_replay(seq, traj, workdir, graphed, g_summary, g_poses):
         raise AssertionError(f"a steady graphed consumed sweep made {g_row['host_syncs']} host "
                              f"syncs and {g_row['graph_launches']} graph launches (0 and 1 "
                              "expected)")
+    row["bootstrap"] = bootstrap_counts(seq, {"graphed": g_summary, "eager": summary})
     return row, by_path, {"eigh": eigh_by_path, "solve": solve_by_path}, matrices
+
+
+def bootstrap_counts(seq, summaries):
+    """Launch calls, graph launches, host syncs and device busy ms of
+    bootstrap sweeps (none makes an init attempt) on a fresh graphed
+    pipeline and a ``graphs=False`` one: the first N_BOOT_WARM sweeps
+    capture what the rest need, then N_BOOT_COUNTED sweeps are counted
+    (profiler and sync-debug mode on the same call). Printed beside each
+    path's bootstrap times from phases 4 and 17; fails unless every counted
+    graphed sweep made 1 graph launch and 0 host syncs."""
+    rows = {}
+    for name, graphs in (("graphed", True), ("eager", False)):
+        pipe = LioPipeline(LioConfig.indoor(), device=DEV, dtype=torch.float32, graphs=graphs)
+        for item in seq[:N_BOOT_WARM]:
+            feed(pipe, item)
+        counted = []
+        for item in seq[N_BOOT_WARM:N_BOOT_WARM + N_BOOT_COUNTED]:
+            n0, c0 = len(pipe._init_odom_poses), captures(pipe)
+            (out, n_sync), c = count_launches(lambda: count_syncs(lambda: feed(pipe, item), DEV),
+                                              DEV)
+            counted.append({"pushed": len(pipe._init_odom_poses) != n0,
+                            "captured": captures(pipe) - c0, "stage": out["stage"],
+                            "host_syncs": n_sync,
+                            **{k: c[k] for k in ("runtime_launches", "graph_launches",
+                                                 "kernel_launch_calls", "device_kernels",
+                                                 "device_busy_ms")}})
+        s = summaries[name]
+        rows[name] = {"counted": counted,
+                      **{k: s[k] for k in s if k.startswith("bootstrap")},
+                      "graphs": pipe._step_graphs.memory_bytes() if graphs else None}
+    log("bootstrap_counts " + json.dumps(rows))
+    bad = [c for c in rows["graphed"]["counted"]
+           if c["stage"] != "NOT_INITED" or c["captured"] or c["host_syncs"] != 0
+           or c["graph_launches"] != 1]
+    if bad or not any(c["pushed"] for c in rows["graphed"]["counted"]):
+        raise AssertionError(f"graphed bootstrap sweeps must make 1 graph launch and 0 host "
+                             f"syncs (a push among them): {rows['graphed']['counted']}")
+    return rows
 
 
 def plain_closed_loop(seq, traj, kernel_summary, part: str):
@@ -1109,7 +1196,7 @@ def plain_closed_loop(seq, traj, kernel_summary, part: str):
                            graphs=part == "knn")
         recs, poses, by_path, plain, _, run_s = drive(
             pipe, seq[:N_SWEEPS], {est_path: (EST, "step_program"),
-                                   f"lio_odometry_plain_{part}": (ODO, "odometry_step")},
+                                   f"lio_odometry_plain_{part}": (ODO, "odometry_program")},
             plain={est_path: (EST, "step_program")} if part == "knn" else None)
     finally:
         setattr(module, attr, orig_attr)
@@ -1146,7 +1233,7 @@ def outdoor64_path(pool):
     pipe = LioPipeline(cfg, device=DEV, dtype=torch.float32)
     recs, poses, by_path, _, shapes, run_s = drive(
         pipe, seq[:N_O64], {"lio_estimator_outdoor64": (EST, "step_program"),
-                            "lio_odometry_outdoor64": (ODO, "odometry_step")})
+                            "lio_odometry_outdoor64": (ODO, "odometry_program")})
     summary = summarize(recs, poses, seq[:N_O64], traj, by_path, run_s)
     e = cfg.estimator
     shape = f"{e.surf_stack_cap}x{e.local_map_filtered_cap}x5"
@@ -1204,7 +1291,7 @@ def corner_paths(seq, traj):
             pipe, seq[:N_SWEEPS],
             {corner: (EST, "_calculate_corner_features"),
              f"{corner}_surf": (EST, "_calculate_features"),
-             f"lio_odometry_{tag}": (ODO, "odometry_step")},
+             f"lio_odometry_{tag}": (ODO, "odometry_program")},
             plain={corner: (EST, "_calculate_corner_features")})
         summary = summarize(recs, poses, seq[:N_SWEEPS], traj, by_path, run_s)
         summary.update(variant=tag, plain_searches_by_path=plain,
@@ -1336,35 +1423,113 @@ def cli_inprocess(*args):
     return buf.getvalue()
 
 
+def tree_digest(tree) -> str:
+    """sha256 of every tensor of ``tree`` (its bytes on the host)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        h.update(leaf.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def recording_loam(graphs: bool, made: list):
+    """A ``LoamPipeline`` class for ``cli run --mode loam`` in this process:
+    ``graphs`` as given, each sweep synchronised and timed with its pose
+    kept, and the host syncs of sweeps LOAM_SYNC_SWEEPS counted (those are
+    left out of the times); each pipeline made is appended to ``made``."""
+    class Recording(PL.LoamPipeline):
+        def __init__(self, cfg, device=None, dtype=torch.float32):
+            super().__init__(cfg, device=device, dtype=dtype, graphs=graphs)
+            self.recs, self.poses = [], []
+            made.append(self)
+
+        def process(self, xyz, mask, ring_ids=None):
+            mapped = (self.frame_count + 1) % self.cfg.odometry.io_ratio == 0
+            sweep = functools.partial(super().process, xyz, mask, ring_ids)
+            c0 = self.graph_captures()
+            counted = len(self.recs) in LOAM_SYNC_SWEEPS
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, n_sync = count_syncs(sweep, DEV, synchronize=False) if counted else (sweep(), None)
+            torch.cuda.synchronize()
+            self.recs.append({"mapped": mapped, "ms": 1e3 * (time.perf_counter() - t0),
+                              "host_syncs": n_sync, "captured": self.graph_captures() - c0})
+            self.poses.append(out["laser_pose"])
+            return out
+
+    return Recording
+
+
+def loam_times(recs) -> dict:
+    def ms(mapped):
+        rows = [r["ms"] for r in recs if r["mapped"] == mapped and not r["captured"]
+                and r["host_syncs"] is None]
+        return float(np.mean(rows)) if rows else None
+
+    counted = [r for r in recs if r["host_syncs"] is not None]
+    return {"mapped_ms_mean": ms(True), "associated_ms_mean": ms(False),
+            "captured_ms": [r["ms"] for r in recs if r["captured"]],
+            "counted_sweeps": [[r["mapped"], r["host_syncs"], r["captured"]] for r in counted],
+            "host_syncs_steady": sum(r["host_syncs"] for r in counted if not r["captured"])}
+
+
 def cli_loam(workdir):
     """Phase 7: ``run --mode loam`` in this process (the kernel's launches
-    counted by path), then ``evaluate``."""
+    counted by path; graphed, the default on the card), ``evaluate``; then
+    the same run with ``graphs=False``: poses and final states bit for bit
+    the graphed run's, and a steady graphed sweep makes no host sync."""
     p = lambda name: os.path.join(workdir, name)  # noqa: E731
-    by_path = {}
-    knn_kernel.reset_launches()
-    t0 = time.perf_counter()
-    with launches_by_path(by_path, {"loam_odometry": (ODO, "odometry_step"),
-                                    "loam_scan_to_map": (MAP, "optimize_to_map")}):
-        out = cli_inprocess("run", "--log", p("seq.liol"), "--profile", "indoor",
-                            "--mode", "loam", "--out", p("traj_loam.tum"),
-                            "--map-out", p("map_loam.pcd"), "--stats-json", p("stats_loam.json"))
-    run_s = time.perf_counter() - t0
-    launches = knn_kernel.launches()
-    ev = cli_inprocess("evaluate", "--est", p("traj_loam.tum"), "--gt", p("gt.tum"))
-    with open(p("stats_loam.json")) as f:
-        stats = json.load(f)
-    row = {"ate_rmse_m": float(_grab(r"ATE RMSE: ([0-9.]+) m", ev, "ATE")),
-           "map_voxels": int(_grab(r"wrote (\d+) map voxels", out, "map size")),
-           "knn_launches": launches, "knn_launches_by_path": by_path, "run_s": run_s,
-           "stats": stats}
+    runs = {}
+    for name, graphs in (("graphed", True), ("eager", False)):
+        by_path, made = {}, []
+        suffix = "" if graphs else "_eager"
+        knn_kernel.reset_launches()
+        t0 = time.perf_counter()
+        orig = PL.LoamPipeline
+        PL.LoamPipeline = recording_loam(graphs, made)
+        try:
+            with launches_by_path(by_path, {f"loam_odometry{suffix}": (ODO, "odometry_program"),
+                                            f"loam_scan_to_map{suffix}": (MAP, "mapping_program")}):
+                out = cli_inprocess("run", "--log", p("seq.liol"), "--profile", "indoor",
+                                    "--mode", "loam", "--out", p(f"traj_loam{suffix}.tum"),
+                                    "--map-out", p(f"map_loam{suffix}.pcd"), "--stats-json",
+                                    p(f"stats_loam{suffix}.json"))
+        finally:
+            PL.LoamPipeline = orig
+        run_s = time.perf_counter() - t0
+        launches = knn_kernel.launches()
+        ev = cli_inprocess("evaluate", "--est", p(f"traj_loam{suffix}.tum"), "--gt", p("gt.tum"))
+        with open(p(f"stats_loam{suffix}.json")) as f:
+            stats = json.load(f)
+        pipe = made[-1]
+        runs[name] = (pipe, {
+            "ate_rmse_m": float(_grab(r"ATE RMSE: ([0-9.]+) m", ev, "ATE")),
+            "map_voxels": int(_grab(r"wrote (\d+) map voxels", out, "map size")),
+            "knn_launches": launches, "knn_launches_by_path": by_path, "run_s": run_s,
+            "state_sha256": tree_digest((pipe.map_state, pipe.odom_state)),
+            "captures": pipe.graph_captures(),
+            "graphs": pipe._step_graphs.memory_bytes() if graphs else None,
+            **loam_times(pipe.recs), "stats": stats})
+        if sum(by_path.values()) != launches:
+            raise AssertionError(f"launches by path {by_path} do not add up to {launches}")
+    (pg, row), (pe, eager) = runs["graphed"], runs["eager"]
+    row["eager"] = {k: v for k, v in eager.items() if k != "stats"}
+    row["equal_to_eager"] = same = {
+        "poses": _same_poses(pg.poses, pe.poses),
+        "state_sha256": row["state_sha256"] == eager["state_sha256"],
+        "ate_rmse_m": row["ate_rmse_m"] == eager["ate_rmse_m"]}
     log("cli_loam " + json.dumps(row))
-    if sum(by_path.values()) != launches:
-        raise AssertionError(f"launches by path {by_path} do not add up to {launches}")
+    if not all(same.values()):
+        raise AssertionError(f"the graphed LOAM run differs from the eager one: {same}")
     if not row["ate_rmse_m"] <= LOAM_ATE_LIMIT:
         raise AssertionError(f"LOAM ATE RMSE {row['ate_rmse_m']} m > {LOAM_ATE_LIMIT} m")
-    if by_path.get("loam_scan_to_map", 0) <= 0:
+    if row["knn_launches_by_path"].get("loam_scan_to_map", 0) <= 0:
         raise AssertionError("the CUDA KNN kernel was not launched in the scan-to-map search")
-    return row, by_path
+    if row["host_syncs_steady"] != 0 or not any(not c for _, _, c in row["counted_sweeps"]):
+        raise AssertionError(f"steady graphed LOAM sweeps made host syncs: "
+                             f"{row['counted_sweeps']}")
+    return row, {**row["knn_launches_by_path"], **eager["knn_launches_by_path"]}
 
 
 @contextlib.contextmanager
@@ -1396,22 +1561,29 @@ def cli_4d(workdir):
     this process (launches and calls counted by path), ``evaluate`` of the
     LIO and the 4D trajectory."""
     p = lambda name: os.path.join(workdir, name)  # noqa: E731
-    by_path, calls = {}, {}
+    by_path, calls, steps, made = {}, {}, [], []
     knn_kernel.reset_launches()
     t0 = time.perf_counter()
+    orig = MB.MapBuilder
+    MB.MapBuilder = recording_builder(steps, made)
     # an estimator step is a call of the graphed step (one graph replay) or
     # of the eager one
-    with launches_by_path(by_path, {"map_builder": (MB, "map_builder_step"),
-                                    "lio_estimator_4d": (EST, "step_program"),
-                                    "lio_odometry_4d": (ODO, "odometry_step")}, calls), \
-            counted_calls(calls, {"estimator_steps": [(PL.LioPipeline, "_graphed_step"),
-                                                      (EST, "lio_step_impl")]}):
-        out = cli_inprocess("run", "--log", p("seq.liol"), "--profile", "indoor",
-                            "--out", p("traj_4d_lio.tum"), "--enable-4d", "--out-4d",
-                            p("traj_4d.tum"), "--timing")
+    try:
+        with launches_by_path(by_path, {"map_builder": (MB, "map_builder_program"),
+                                        "lio_estimator_4d": (EST, "step_program"),
+                                        "lio_odometry_4d": (ODO, "odometry_program")}), \
+                counted_calls(calls, {"estimator_steps": [(PL.LioPipeline, "_graphed_step"),
+                                                          (EST, "lio_step_impl")]}):
+            out = cli_inprocess("run", "--log", p("seq.liol"), "--profile", "indoor",
+                                "--out", p("traj_4d_lio.tum"), "--enable-4d", "--out-4d",
+                                p("traj_4d.tum"), "--timing")
+    finally:
+        MB.MapBuilder = orig
     run_s = time.perf_counter() - t0
+    calls["map_builder"] = len(steps)
     if sum(by_path.values()) != knn_kernel.launches():
         raise AssertionError(f"launches by path {by_path} do not add up to {knn_kernel.launches()}")
+    builder_pair = builder_against_eager(made[-1], steps)
     ate = float(_grab(r"ATE RMSE: ([0-9.]+) m", cli_inprocess(
         "evaluate", "--est", p("traj_4d_lio.tum"), "--gt", p("gt.tum")), "ATE"))
     ate_4d = float(_grab(r"ATE RMSE: ([0-9.]+) m", cli_inprocess(
@@ -1429,8 +1601,11 @@ def cli_4d(workdir):
            "min_abs_qdot_vs_phase5": float(np.min(np.abs(np.sum(q_lio * q_sp, axis=-1))))
            if len(t_lio) == len(t_sp) else None,
            "map_builder_stage": stage.group(1).split() if stage else None,
-           "knn_launches_by_path": by_path, "run_s": run_s}
+           "builder": builder_pair, "knn_launches_by_path": by_path, "run_s": run_s}
     log("cli_4d " + json.dumps(row))
+    if not all(builder_pair["equal_to_eager"].values()) or builder_pair["host_syncs_steady"]:
+        raise AssertionError(f"the graphed 4D builder differs from the eager one, or made host "
+                             f"syncs: {builder_pair}")
     if len(t_lio) != len(t_sp) or np.max(np.abs(t_lio - t_sp)) > 1e-6 \
             or row["max_dp_vs_phase5_m"] > 1e-4 or row["min_abs_qdot_vs_phase5"] <= 1 - 1e-6:
         raise AssertionError(f"the LIO poses with --enable-4d differ from phase 5's: {row}")
@@ -1444,6 +1619,58 @@ def cli_4d(workdir):
     if by_path.get("map_builder", 0) <= 0:
         raise AssertionError("the 4D builder's surf search did not launch the kernel")
     return row, by_path
+
+
+def recording_builder(steps: list, made: list):
+    """A ``MapBuilder`` class for the CLI in this process: each step
+    synchronised and timed, its inputs and pose kept, and its host syncs
+    counted on steps BUILDER_SYNC_STEPS (the first captures the graph; those
+    are left out of the times); each builder made is appended to ``made``."""
+    class Recording(MB.MapBuilder):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+        def step(self, corner_cloud, surf_cloud, odom_pose):
+            step = functools.partial(super().step, corner_cloud, surf_cloud, odom_pose)
+            c0 = self.graph_captures()
+            counted = len(steps) in BUILDER_SYNC_STEPS
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, n_sync = count_syncs(step, DEV, synchronize=False) if counted else (step(), None)
+            torch.cuda.synchronize()
+            steps.append({"inputs": (corner_cloud, surf_cloud, odom_pose), "pose": out["pose"],
+                          "ms": 1e3 * (time.perf_counter() - t0), "host_syncs": n_sync,
+                          "captured": self.graph_captures() - c0})
+            return out
+
+    return Recording
+
+
+def builder_against_eager(graphed, steps) -> dict:
+    """The graphed builder's steps (phase 10) once more on a ``graphs=False``
+    builder, on the same inputs: poses and final state bit for bit, and
+    both paths' ms per step (synchronised)."""
+    eager = MB.MapBuilder(graphed.cfg, DEV, torch.float32, graphs=False)
+    poses, ms = [], []
+    for rec in steps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses.append(eager.step(*rec["inputs"])["pose"])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    counted = [r for r in steps if r["host_syncs"] is not None]
+    timed = [r["ms"] for r in steps if r["host_syncs"] is None and not r["captured"]]
+    return {"steps": len(steps), "graphed": graphed.graphs, "captures": graphed.graph_captures(),
+            "graphs": graphed._step_graphs.memory_bytes() if graphed.graphs else None,
+            "graphed_ms_mean": float(np.mean(timed)) if timed else None,
+            "graphed_ms": [r["ms"] for r in steps],
+            "eager_ms_mean": float(np.mean(ms[1:])) if len(ms) > 1 else None, "eager_ms": ms,
+            "host_syncs_steady": sum(r["host_syncs"] for r in counted if not r["captured"]),
+            "counted_steps": len(counted),
+            "equal_to_eager": {"poses": _same_poses([r["pose"] for r in steps], poses),
+                               "state_sha256": tree_digest(graphed.state) == tree_digest(
+                                   eager.state)}}
 
 
 def cli_outdoor(workdir, simulating):
@@ -1620,7 +1847,7 @@ def rs32_path(workdir, pool):
     knn_kernel.reset_launches()
     t0 = time.perf_counter()
     with launches_by_path(by_path, {"rs32_estimator": (EST, "step_program"),
-                                    "rs32_odometry": (ODO, "odometry_step")}), \
+                                    "rs32_odometry": (ODO, "odometry_program")}), \
             stages_by_pair(stages):
         out = cli_inprocess("run", "--log", p("rs32.liol"), "--config", p("rs32.yaml"),
                             "--out", p("traj_rs32.tum"), "--stats-json", p("stats_rs32.json"))

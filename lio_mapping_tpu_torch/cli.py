@@ -317,13 +317,14 @@ def _replay(args, mesh=None):
 
     # the 4D map builder consumes the estimator's output
     # (launch/map_4D_indoor.launch:9-15)
-    mb_state = None
+    builder = None
     times_4d, qs_4d, ts_4d = [], [], []
     if args.enable_4d and writer:  # its poses are output only: rank 0 runs it
         from .models import map_builder as MB
-        from .models import mapping as MAPM
 
-        mb_state = MAPM.init_state(cfg, torch.float32, device)
+        # one CUDA graph a step on the card, eager beside a mesh's ranks
+        builder = MB.MapBuilder(cfg, device, torch.float32,
+                                graphs=None if mesh is None else False)
 
     self_rot = self_box = None
     if args.self_filter:
@@ -381,7 +382,6 @@ def _replay(args, mesh=None):
         stats["n_pairs"] += 1
 
     def _step_impl(t, xyz, mask, samples, ring, pf=None):
-        nonlocal mb_state
         if self_rot is not None:
             with timer.stage("self_filter"):
                 mask = self_filter(xyz, mask)
@@ -407,11 +407,10 @@ def _replay(args, mesh=None):
             stats["n_consumed"] += 1
             if mesh is not None:
                 stats["est_launches"] += knn_kernel.launches() - k0
-        if mb_state is not None and out.get("stage") == "INITED" \
+        if builder is not None and out.get("stage") == "INITED" \
                 and "corner_cloud" in out and not out.get("predicted"):
             with timer.stage("map_builder", sync_on=device):
-                mb_state, mb_out = MB.map_builder_step(
-                    mb_state, out["corner_cloud"], out["surf_cloud"], pose, cfg)
+                mb_out = builder.step(out["corner_cloud"], out["surf_cloud"], pose)
             pend_t4.append(t)
             pend_q4.append(mb_out["pose"].q)
             pend_p4.append(mb_out["pose"].t)

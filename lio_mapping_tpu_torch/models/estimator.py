@@ -644,7 +644,7 @@ def _st_gn(v, cfg: LioConfig, axis, map_shard, it: int):
     return new
 
 
-def _device_vector(values, dtype, device) -> torch.Tensor:
+def device_vector(values, dtype, device) -> torch.Tensor:
     """A small constant vector made on ``device`` by fills, one an element
     (no host-to-device copy); each value rounds to ``dtype`` as ``.to``
     rounds it."""
@@ -701,7 +701,7 @@ def _st_post(v, cfg: LioConfig, axis, map_shard, n_ref: int, ex_prior_host):
     pres_opt = tree_map(lambda a: a[pivot + 1:], st.pres)
     ex_prior = None
     if ex_prior_host is not None:
-        ex_prior = tuple(_device_vector(x, dtype, dev) for x in ex_prior_host)
+        ex_prior = tuple(device_vector(x, dtype, dev) for x in ex_prior_host)
 
     # one evaluation at x0 serves the convergence gates and the LM's first
     # iteration

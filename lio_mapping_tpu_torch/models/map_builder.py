@@ -13,7 +13,9 @@ gravity, so the builder keeps them and refines yaw and translation only:
   Jacobian damped by diag(5e-3, 5e-3, 1) in the body frame, a
   left-multiplied update) against the builder's own map stores. Its surf
   search runs the CUDA KNN on the card; the corner search stays on the
-  plain tiled version, as in the LOAM back end.
+  plain tiled version, as in the LOAM back end;
+* ``MapBuilder``: the builder's state and step, one CUDA graph a step on
+  the card (the reference's jitted ``map_builder_step``).
 """
 
 from __future__ import annotations
@@ -23,13 +25,16 @@ from typing import Tuple
 import torch
 
 from ..config import LioConfig
-from ..ops import voxel as VX
 from ..ops.cloud import Cloud
 from ..utils import quaternion as quat
 from ..utils.se3 import Pose
-from .mapping import MappingState, init_state, insert_into_map, optimize_to_map
+from ..utils.tree import tree_map
+from . import estimator as EST
+from . import step_graph as SG
+from .mapping import MappingState, init_state, mapping_program
 
-__all__ = ["init_state", "map_builder_step", "transform_4d_associate"]
+__all__ = ["MapBuilder", "init_state", "map_builder_program", "map_builder_step",
+           "transform_4d_associate"]
 
 
 def transform_4d_associate(state: MappingState, odom_pose: Pose) -> Pose:
@@ -46,24 +51,64 @@ def transform_4d_associate(state: MappingState, odom_pose: Pose) -> Pose:
 def map_builder_step(state: MappingState, corner_cloud: Cloud, surf_cloud: Cloud,
                      odom_pose: Pose, cfg: LioConfig) -> Tuple[MappingState, dict]:
     """One MapBuilder::ProcessMap call: the first maps at the predicted
-    pose, later ones refine it against the map first."""
-    m = cfg.mapping
-    pose_tobe = transform_4d_associate(state, odom_pose)
-    c_xyz, c_mask, _ = VX.voxel_downsample(corner_cloud.xyz, corner_cloud.mask,
-                                           m.corner_filter_size, cfg.estimator.corner_stack_cap)
-    s_xyz, s_mask, _ = VX.voxel_downsample(surf_cloud.xyz, surf_cloud.mask, m.surf_filter_size,
-                                           cfg.estimator.surf_stack_cap)
-    pose_opt = pose_tobe
-    if bool(state.initialized):  # host sync
-        pose_opt = optimize_to_map(
-            state.corner_map.xyz, state.corner_map.mask, state.surf_map.xyz,
-            state.surf_map.mask, c_xyz, c_mask, s_xyz, s_mask, pose_tobe, cfg,
-            yaw_constrained=True)
-    new_state = MappingState(
-        corner_map=insert_into_map(state.corner_map, c_xyz, c_mask, pose_opt,
-                                   m.corner_filter_size, cfg),
-        surf_map=insert_into_map(state.surf_map, s_xyz, s_mask, pose_opt, m.surf_filter_size,
-                                 cfg),
-        pose=pose_opt, pose_bef=odom_pose,
-        initialized=torch.tensor(True, device=state.initialized.device))
-    return new_state, {"pose": pose_opt}
+    pose, later ones refine it against the map first. Runs
+    :func:`map_builder_program` eagerly."""
+    v = {"map": state, "corner_cloud": corner_cloud, "surf_cloud": surf_cloud,
+         "odom_pose": odom_pose}
+    new_state, out = map_builder_program(EST.EagerRun(), v, cfg)
+    return new_state, {"pose": out["pose"]}
+
+
+def map_builder_program(run, v: dict, cfg: LioConfig) -> Tuple[MappingState, dict]:
+    """The builder's step as a program: ``mapping.mapping_program`` with
+    the yaw-only prediction and the yaw-constrained GN (same values in
+    ``v``)."""
+    return mapping_program(run, v, cfg, predict=transform_4d_associate, yaw_constrained=True)
+
+
+class MapBuilder:
+    """The builder's map state and its step. On a CUDA device (``graphs``,
+    the default there) each step is one CUDA graph
+    (``models/step_graph.StepGraphs``) that reads nothing back: the step's
+    clouds and pose are copied into the graph's input buffers, the map
+    state lives in its static buffers from step to step, and the returned
+    pose is a copy that no later step overwrites. ``graphs=False`` (and
+    the CPU) runs :func:`map_builder_step` eagerly; both give the same
+    bits."""
+
+    def __init__(self, cfg: LioConfig, device=None, dtype=torch.float32, graphs: bool = None):
+        self.cfg = cfg
+        self.device = torch.device("cuda" if device is None else device)
+        on_card = self.device.type == "cuda"
+        if graphs and not on_card:
+            raise ValueError("graphs=True needs a CUDA device")
+        self.graphs = on_card if graphs is None else bool(graphs)
+        self._step_graphs = None  # made at first use
+        self.state = init_state(cfg, dtype, self.device)
+
+    def graph_captures(self) -> int:
+        """CUDA graphs captured so far (0 on the eager path)."""
+        return 0 if self._step_graphs is None else self._step_graphs.stats["captures"]
+
+    def step(self, corner_cloud: Cloud, surf_cloud: Cloud, odom_pose: Pose) -> dict:
+        """One builder step on the estimator's (copied) outputs; returns
+        ``{"pose": refined pose}``."""
+        if not self.graphs:
+            self.state, out = map_builder_step(self.state, corner_cloud, surf_cloud, odom_pose,
+                                               self.cfg)
+            return out
+        if self._step_graphs is None:
+            self._step_graphs = SG.StepGraphs(self.device)
+        g, cfg = self._step_graphs, self.cfg
+        v = {}
+        for name, value in (("map", self.state), ("corner_cloud", corner_cloud),
+                            ("surf_cloud", surf_cloud), ("odom_pose", odom_pose)):
+            g.bind(v, name, value)
+
+        def program(v):
+            state, out = map_builder_program(g, v, cfg)
+            return {"map": state, "pose": out["pose"]}
+
+        g.stretch(("map_builder",), program, v)
+        self.state = v["map"]
+        return {"pose": tree_map(torch.clone, v["pose"])}

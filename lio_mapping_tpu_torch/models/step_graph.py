@@ -1,12 +1,15 @@
-"""The estimator step replayed as CUDA graphs: the port's counterpart of the
-reference's one ``jax.jit`` program per sweep (``models/pipeline.py``'s
-``front_lio_body`` and ``predict`` there).
+"""The per-sweep programs replayed as CUDA graphs: the port's counterpart of
+the reference's one ``jax.jit`` program per sweep (``models/pipeline.py``'s
+``front_odo``, ``front_lio_body``, ``predict``, ``front_map`` and
+``front_assoc`` there, and the jitted ``map_builder_step``).
 
 ``models/estimator.step_program`` writes the step as stretches of device
 work and conditional bodies (the mini-GN's rounds after the first, the
 LM's iterations after the first: each runs where its device flag says the
-loop has not stopped). :class:`StepGraphs` runs that program on the card
-as ONE graph per key, and reads nothing back:
+loop has not stopped); ``models/odometry.odometry_program`` and
+``models/mapping.mapping_program`` write the scan-to-scan and scan-to-map
+GNs so, an iteration a body. :class:`StepGraphs` runs such a program on
+the card as ONE graph per key, and reads nothing back:
 
 * :meth:`StepGraphs.stretch` at the top level is a graph: captured the
   first time its key comes up (an eager warm-up on the runner's side
@@ -42,8 +45,10 @@ as ONE graph per key, and reads nothing back:
 
 On the CPU the runner executes the program eagerly through the same static
 buffers, under :class:`HostReadGuard`, which fails on any op that would
-read back to the host or upload from it; a conditional body's flag is read
-outside the guard (``stats["conditionals"]``, an IF node on the card), and
+read back to the host or upload from it, and fails as a replay would when a
+key's inputs are not the buffers of its first call; a conditional body's
+flag is read outside the guard (``stats["conditionals"]``, an IF node on
+the card), and
 the plain ``eigh`` may check LAPACK's status only inside
 ``ops/eigh.eigh_plain``. The CPU tests hold the step to what a capture
 needs.
@@ -240,8 +245,10 @@ class _Graph:
 
 
 class StepGraphs:
-    """Runs ``estimator.step_program`` (and the pipeline's skipped-sweep
-    predict) as CUDA graphs on ``device``; see the module docstring.
+    """Runs the per-sweep programs (``estimator.step_program``, the
+    pipelines' bootstrap and LOAM sweeps, the 4D builder's step, the
+    skipped-sweep predict) as CUDA graphs on ``device``; see the module
+    docstring.
 
     ``stats`` counts what ran: graphs (top-level stretches), replays and
     captures, conditional bodies met (``conditionals``), host decisions
@@ -252,6 +259,7 @@ class StepGraphs:
         self.device = torch.device(device)
         self.capture = self.device.type == "cuda"
         self._graphs = {}
+        self._seen = {}  # on the CPU: key -> {input name: its buffers' signature}
         self._static = {}  # (name, leaf, shape, strides, dtype) -> (base, view)
         if self.capture:
             self._dev = self.device.index if self.device.index is not None \
@@ -288,6 +296,15 @@ class StepGraphs:
                     out = fn(reads)
             finally:
                 self._mode = None
+            # what a replay on the card checks: the same input buffers as
+            # the key's first call (a body skipped there read nothing)
+            seen = self._seen.setdefault(key, {})
+            bad = sorted(name for name in reads.names if name in seen
+                         and seen[name] != _signature(v, name))
+            if bad:
+                raise RuntimeError(f"graph {key}: inputs {bad} are not the buffers of its "
+                                   "first call")
+            seen.update({name: _signature(v, name) for name in reads.names})
             v.update(self._store(out))
             return
         g = self._graphs.get(key)

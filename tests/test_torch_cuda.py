@@ -2,9 +2,9 @@
 version (float32), the ``eigh`` kernel (float64 Householder and implicit
 QL) against float64 ``torch.linalg.eigh`` and bit for bit against its
 step-by-step reference, the LU solve kernel against float64
-``torch.linalg.solve``, and the graphed INITED step (one CUDA graph a
-consumed sweep, conditional nodes for the early exits) against the eager
-one.
+``torch.linalg.solve``, and the graphed pipelines (one CUDA graph a
+bootstrap sweep, a consumed INITED sweep, a LOAM sweep and a 4D builder
+step, conditional nodes for the early exits) against the eager ones.
 
 These tests need an NVIDIA GPU and skip without one. They import neither
 JAX nor the reference package, so they also run where only the port is
@@ -447,15 +447,17 @@ def graph_runs():
             launches.append(TKK.launches() - before)
             outs.append(tree_map(lambda t: t.cpu() if torch.is_tensor(t) else t, out))
         runs[graphs] = {"outs": outs, "launches": launches, "pipe": pipe,
-                        "state": [t.cpu() for t in tree_leaves(pipe.est_state)]}
+                        "state": [t.cpu() for t in tree_leaves((pipe.est_state,
+                                                                pipe.odom_state))]}
     return runs
 
 
 @pytest.mark.cuda
 def test_graphed_step_equals_the_eager_step_bit_for_bit(graph_runs):
-    """Six or more consumed INITED sweeps (and the skipped sweeps' predicts)
-    through the replayed graphs give the eager step's outputs and final
-    state bit for bit."""
+    """The cold start (each bootstrap sweep's front end and odometry one
+    graph), six or more consumed INITED sweeps and the skipped sweeps'
+    predicts through the replayed graphs give the eager pipeline's outputs
+    and final states bit for bit."""
     from lio_mapping_tpu_torch.utils.tree import tree_leaves
 
     g, e = graph_runs[True], graph_runs[False]
@@ -523,6 +525,117 @@ def test_graphed_steady_sweeps_make_no_host_sync(graph_runs):
     assert sum("body_pose" in o for o in outs) >= 1
     assert sum(bool(o.get("predicted")) for o in outs) >= 1
     assert all(torch.isfinite(o["laser_pose"].t).all() for o in outs)
+
+
+@pytest.mark.cuda
+def test_graphed_bootstrap_sweeps_make_no_host_sync(dev):
+    """A fresh graphed pipeline on the small config: after the bootstrap's
+    two graphs are captured (a pushed and an unpushed sweep), bootstrap
+    sweeps without an init attempt (front end and odometry, the GN's 25
+    iterations as conditional nodes, a push's stacks) run under
+    ``torch.cuda.set_sync_debug_mode("error")``, one graph launch each,
+    and give the eager pipeline's poses bit for bit."""
+    from lio_mapping_tpu_torch.models.pipeline import LioPipeline
+
+    cfg = _graph_cfg()
+    sweeps = _graph_sweeps(cfg)[:8]
+    pipes = [LioPipeline(cfg, device="cuda"), LioPipeline(cfg, device="cuda", graphs=False)]
+    outs = [[], []]
+    for k, (xyz, mask, imu) in enumerate(sweeps):
+        for p, o in zip(pipes, outs):
+            steady = p.graphs and k >= 4
+            n0, c0 = len(p._init_odom_poses), p.graph_captures()
+            torch.cuda.synchronize()
+            if steady:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                o.append(p.process(xyz, mask, p.make_samples(*imu)))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if steady:
+                assert p.graph_captures() == c0 and o[-1]["stage"] == "NOT_INITED"
+                o[-1]["pushed"] = len(p._init_odom_poses) > n0
+    assert any(o.get("pushed") for o in outs[0]) and any(o.get("pushed") is False
+                                                         for o in outs[0])
+    assert pipes[0].graph_captures() == 2
+    for og, oe in zip(*outs):
+        assert torch.equal(og["laser_pose"].q, oe["laser_pose"].q)
+        assert torch.equal(og["laser_pose"].t, oe["laser_pose"].t)
+        assert torch.equal(og["surf_cloud"].xyz, oe["surf_cloud"].xyz)
+
+
+def _loam_cfg():
+    """The small config with a narrow LOAM map store and stacks."""
+    import dataclasses
+
+    base = _graph_cfg()
+    return dataclasses.replace(
+        base, mapping=dataclasses.replace(base.mapping, map_cloud_cap=8192),
+        estimator=dataclasses.replace(base.estimator, corner_stack_cap=512,
+                                      surf_stack_cap=2048))
+
+
+@pytest.mark.cuda
+def test_graphed_loam_equals_eager_and_makes_no_host_sync(dev):
+    """``LoamPipeline`` graphed (the default on the card: the mapped and the
+    associated sweep one graph each) against ``graphs=False`` over ten
+    sweeps, bit for bit (poses and final states); the sweeps after both
+    graphs were captured run under the sync-debug mode's "error"."""
+    from lio_mapping_tpu_torch.models.pipeline import LoamPipeline
+    from lio_mapping_tpu_torch.utils.tree import tree_leaves
+
+    cfg = _loam_cfg()
+    sweeps = _graph_sweeps(cfg)[:10]
+    pipes = [LoamPipeline(cfg, device="cuda"), LoamPipeline(cfg, device="cuda", graphs=False)]
+    assert pipes[0].graphs and not pipes[1].graphs
+    outs = [[], []]
+    for k, (xyz, mask, _) in enumerate(sweeps):
+        for p, o in zip(pipes, outs):
+            torch.cuda.synchronize()
+            if p.graphs and k >= 2:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                o.append(p.process(xyz, mask))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    assert pipes[0].graph_captures() == 2
+    for og, oe in zip(*outs):
+        for key in ("laser_pose", "odom_pose"):
+            assert torch.equal(og[key].q, oe[key].q) and torch.equal(og[key].t, oe[key].t)
+    for a, b in zip(tree_leaves((pipes[0].map_state, pipes[0].odom_state)),
+                    tree_leaves((pipes[1].map_state, pipes[1].odom_state))):
+        assert torch.equal(a, b)
+    assert int(pipes[0].map_state.surf_map.mask.sum()) > 100
+
+
+@pytest.mark.cuda
+def test_graphed_map_builder_equals_eager(graph_runs):
+    """``MapBuilder`` graphed against ``graphs=False`` on the consumed
+    INITED sweeps' outputs of the graphed pipeline: poses and final state
+    bit for bit; steps after the capture make no host sync."""
+    from lio_mapping_tpu_torch.models.map_builder import MapBuilder
+    from lio_mapping_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    outs = [o for o in graph_runs[True]["outs"] if o["stage"] == "INITED" and "body_pose" in o]
+    cfg = graph_runs[True]["pipe"].cfg
+    builders = [MapBuilder(cfg, "cuda"), MapBuilder(cfg, "cuda", graphs=False)]
+    assert builders[0].graphs and not builders[1].graphs
+    poses = [[], []]
+    for k, o in enumerate(outs):
+        o = tree_map(lambda t: t.cuda() if torch.is_tensor(t) else t, o)
+        for b, ps in zip(builders, poses):
+            torch.cuda.synchronize()
+            if b.graphs and k >= 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                ps.append(b.step(o["corner_cloud"], o["surf_cloud"], o["laser_pose"])["pose"])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    assert len(outs) >= 3 and builders[0].graph_captures() == 1
+    for a, b in zip(*poses):
+        assert torch.equal(a.q, b.q) and torch.equal(a.t, b.t)
+    for a, b in zip(tree_leaves(builders[0].state), tree_leaves(builders[1].state)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -12,6 +12,8 @@ against the reference package, started from the same state.
 (b) Cold start: both pipelines (float64, CPU) on the same short sequence
     (``small_cfg`` with narrower feature capacities) reach INITED on the
     same sweep with laser poses within 1e-5 m; one INITED step follows.
+    The port's pipeline with its graphs on the CPU runner does the same,
+    bit for bit the eager port.
 
 The checkpoint bridge is held both ways: the reference's ``save`` loads
 into the port and continues as the reference does, and the port's ``save``
@@ -38,6 +40,7 @@ from lio_mapping_tpu_torch.io import checkpoint as TCK
 from lio_mapping_tpu_torch.io import synthetic as TSYN
 from lio_mapping_tpu_torch.models import estimator as TE
 from lio_mapping_tpu_torch.models import point_processor as TPP
+from lio_mapping_tpu_torch.models import step_graph as SG
 from lio_mapping_tpu_torch.models.pipeline import LioPipeline as TPipe
 from lio_mapping_tpu_torch.ops import knn as TK
 from lio_mapping_tpu_torch.ops import preintegration as TPI
@@ -171,20 +174,33 @@ def cold_cfg():
 @pytest.fixture(scope="module")
 def cold_start():
     """Both pipelines over the first N_COLD sweeps of the cold-start
-    sequence; returns (reference pipe, port pipe, outputs, traj, cfgs)."""
+    sequence, and a third, the port's with its bootstrap and step through
+    the step-graph runner (``models/step_graph.StepGraphs`` on the CPU, as
+    ``tests/test_torch_bootstrap_graphs.py`` runs it); returns (reference
+    pipe, port pipe, outputs, traj, cfgs, (runner pipe, its outputs))."""
     jcfg = cold_cfg()
     cfg = port_cfg(jcfg)
     traj = JSYN.Trajectory(g_norm=jcfg.estimator.imu.g_norm)
     pj = JPipe(jcfg, dtype=jnp.float64)
     pt = TPipe(cfg, device="cpu", dtype=F64)
+    pr = TPipe(cfg, device="cpu", dtype=F64)
+    pr._step_graphs, pr.graphs = SG.StepGraphs("cpu"), True
     dt = cfg.sensor.scan_period
-    outs = []
-    for i in range(N_COLD):
-        xyz, mask, imu = _sweep_and_imu(traj, i * dt, dt)
-        oj = pj.process(xyz, mask, pj.make_samples(*imu))
-        ot = pt.process(xyz, mask, pt.make_samples(*imu))
-        outs.append((oj, ot))
-    return pj, pt, outs, traj, (jcfg, cfg)
+    outs, outs_r = [], []
+    # one intra-op thread for the port's sweeps: the test workers share the
+    # cores, and torch's threads waiting on each other there slow them ~40x
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for i in range(N_COLD):
+            xyz, mask, imu = _sweep_and_imu(traj, i * dt, dt)
+            oj = pj.process(xyz, mask, pj.make_samples(*imu))
+            ot = pt.process(xyz, mask, pt.make_samples(*imu))
+            outs.append((oj, ot))
+            outs_r.append(pr.process(xyz, mask, pr.make_samples(*imu)))
+    finally:
+        torch.set_num_threads(n_threads)
+    return pj, pt, outs, traj, (jcfg, cfg), (pr, outs_r)
 
 
 def _pose_close(ot, oj, tol=POSE_TOL, msg=""):
@@ -195,23 +211,31 @@ def _pose_close(ot, oj, tol=POSE_TOL, msg=""):
 
 
 def test_cold_start_reaches_inited_on_the_same_sweep(cold_start):
-    pj, pt, outs, _, _ = cold_start
+    """The port, eager and through the runner, reaches INITED on the
+    reference's sweep with laser poses within POSE_TOL of it; the runner's
+    are the eager port's bit for bit."""
+    pj, pt, outs, _, _, (pr, outs_r) = cold_start
     stages = [(oj["stage"], ot["stage"]) for oj, ot in outs]
     assert all(a == b for a, b in stages), stages
+    assert [o["stage"] for o in outs_r] == [s for s, _ in stages]
     first = [s for s, _ in stages].index("INITED")
     assert first < N_COLD - 1, stages
-    assert pt.stage == pj.stage == "INITED"
-    for i, (oj, ot) in enumerate(outs):
+    assert pt.stage == pj.stage == pr.stage == "INITED"
+    for i, ((oj, ot), o_r) in enumerate(zip(outs, outs_r)):
         _pose_close(ot, oj, msg=f"sweep {i}")
-    # the last sweep ran the INITED estimator step in both
+        _pose_close(o_r, oj, msg=f"runner, sweep {i}")
+        assert torch.equal(o_r["laser_pose"].t, ot["laser_pose"].t), i
+        assert torch.equal(o_r["laser_pose"].q, ot["laser_pose"].q), i
+    # the last sweep ran the INITED estimator step in all three
     oj, ot = outs[-1]
-    assert "body_pose" in ot and "body_pose" in oj
+    assert "body_pose" in ot and "body_pose" in oj and "body_pose" in outs_r[-1]
     assert int(ot["solver_iterations"]) == int(oj["solver_iterations"])
     assert int(ot["newest_rounds"]) == int(oj["newest_rounds"])
+    assert pr._step_graphs.stats["stretches"] == N_COLD
 
 
 def test_checkpoint_bridge_both_ways(cold_start, tmp_path):
-    pj, pt, _, traj, (jcfg, cfg) = cold_start
+    pj, pt, _, traj, (jcfg, cfg), _ = cold_start
 
     # reference save -> port load: every leaf equal, then both continue alike
     ref_path = str(tmp_path / "ref.npz")
@@ -284,7 +308,7 @@ def test_host_predict_pose(cold_start):
     """The numpy prediction of a skipped sweep's pose: the reference's own
     numpy mirror on the same snapshot gives the same bits, and the port's
     device prediction (float64) agrees within 1e-6."""
-    _, pt, _, traj, (_, cfg) = cold_start
+    _, pt, _, traj, (_, cfg), _ = cold_start
     w = cfg.estimator.window_size
     st = pt.est_state
     snap = {"q": st.qs[w], "p": st.ps[w], "v": st.vs[w], "ba": st.bas[w], "bg": st.bgs[w],
@@ -319,7 +343,7 @@ def test_host_predict_in_the_pipeline(cold_start, tmp_path):
     takes the numpy prediction, which agrees with the device prediction of
     a pipeline without ``host_predict`` (1e-5 m, |q.q'| within 1e-6), and
     the consumed sweep is the same in both."""
-    _, pt, _, traj, (_, cfg) = cold_start
+    _, pt, _, traj, (_, cfg), _ = cold_start
     path = str(tmp_path / "cold.npz")
     pt.save(path)
     cfg2 = dataclasses.replace(cfg, estimator=dataclasses.replace(cfg.estimator, odom_io=2))
