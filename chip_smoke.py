@@ -149,8 +149,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    ``python -m`` subprocess on the card, five at a time, at cut depths:
    ``bench`` (both profiles, 2 chunks of 6 sweeps, no warm-up step, no
    legacy companion), ``bench_cli`` (40 sweeps, the small config),
-   ``profile_step``, ``profile_e2e``, ``profile_waterfall`` (3 timed calls
-   a prefix), ``ab_flags`` (the four variants over 56 sweeps),
+   ``profile_step``, ``ab_flags`` (the four variants over 56 sweeps),
    ``bench_scaling`` (1 and 2 ranks sharing the card, 5 steps) and
    ``debug_corner`` (its four modes). Fails unless every tool exits 0 and
    names the card, ``bench``'s indoor and outdoor_64 frames/s are above 0
@@ -1385,8 +1384,9 @@ def cli_lio(workdir, simulating):
 
 def cli_two_phase(workdir, single):
     """Phase 6: ``run --two-phase`` equals phase 5's single-process run.
-    ``--timing`` makes phase B print its KNN kernel launches (it only adds
-    a card sync per sweep)."""
+    ``--timing`` makes phase B print its KNN kernel launches and the
+    tracer's report (host spans, device stamps, captures and replays per
+    graph key)."""
     out = cli_call(workdir, "run", "--log", "seq.liol", "--profile", "indoor",
                    "--out", "traj_tp.tum", "--map-out", "map_tp.pcd", "--two-phase", "--timing")
     t_sp, q_sp, p_sp = evaluation.load_tum(os.path.join(workdir, "traj.tum"))
@@ -2075,9 +2075,7 @@ def tool_runs(workdir):
              os.path.join(workdir, "cli_throughput.json")),
             ("debug_corner",),
             ("bench_scaling", "--virtual", "2", "--iters", "5"),
-            ("profile_waterfall", "--reps", "3"),
-            ("profile_step",),
-            ("profile_e2e",)]
+            ("profile_step",)]
 
 
 def run_tool(workdir, name, *args):
@@ -2102,7 +2100,7 @@ def run_tool(workdir, name, *args):
 
 
 def tools_path(workdir, card):
-    """Phase 16: the eight tools as subprocesses, ``TOOL_LANES`` at a time;
+    """Phase 16: the six tools as subprocesses, ``TOOL_LANES`` at a time;
     each must exit 0 and name the card (``card``: the nvidia-smi line), with
     the checks of each tool's numbers. Returns (row, kernel launches by
     tool)."""
@@ -2118,10 +2116,9 @@ def tools_path(workdir, card):
             raise AssertionError(f"tool {name} exited {rc}:\n{err[-4000:]}")
         res[name], secs[name] = last_json(out), s
     b, ps, ab = res["bench"], res["profile_step"], res["ab_flags"]
-    dc, bs, wf = res["debug_corner"], res["bench_scaling"], res["profile_waterfall"]
+    dc, bs = res["debug_corner"], res["bench_scaling"]
     devices = {"bench": [b["device"]], "bench_cli": [res["bench_cli"]["device"]],
                "profile_step": [ps["aggregate"]["device"]],
-               "profile_e2e": [res["profile_e2e"]["device"]], "profile_waterfall": [wf["device"]],
                "ab_flags": [r["device"] for r in ab["results"]], "bench_scaling": [bs["device"]],
                "debug_corner": [dc["device"]]}
     knn_row = ps["stages"][0]
@@ -2134,7 +2131,6 @@ def tools_path(workdir, card):
                "value", "fps_total", "per_step_ms_median", "ate_rmse_m", "stage")},
            "profile_step": [{k: r.get(k) for k in ("stage", "ms", "gflop", "gbytes_per_s",
                                                    "knn_launches")} for r in ps["stages"]],
-           "profile_e2e": res["profile_e2e"], "profile_waterfall": wf["stages"],
            "ab_flags": [{k: r.get(k) for k in ("variant", "ate_rmse_m", "n_inited_poses",
                                                "fps")} for r in ab["results"]],
            "bench_scaling": bs["steps"], "debug_corner": dc["rmse"],
@@ -2157,8 +2153,6 @@ def tools_path(workdir, card):
         raise AssertionError(f"bench_scaling ran {bs['steps']}")
     by_path = {"tool_bench": b["knn_launches"], "tool_bench_outdoor64": b["outdoor64_knn_launches"],
                "tool_profile_step": ps["aggregate"]["knn_launches"],
-               "tool_profile_e2e": res["profile_e2e"]["knn_launches"],
-               "tool_profile_waterfall": wf["knn_launches"],
                "tool_ab_flags": sum(r["knn_launches"] for r in ab["results"]),
                "tool_bench_scaling": sum(s["knn_launches"] for s in bs["steps"]),
                "tool_debug_corner": dc["knn_launches"]}

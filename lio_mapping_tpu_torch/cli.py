@@ -284,11 +284,14 @@ def _replay(args, mesh=None):
     from .models import pipeline as PL
     from .ops import knn_kernel
     from .utils.profiling import SteadySyncs
+    from .utils import timing as TM
     from .utils.timing import StageTimer, device_trace, dispatch_floor_ms
 
     cfg = _profile(args.profile, args.config)
     device = mesh.device if mesh is not None else torch.device(args.device)
     writer = mesh is None or mesh.rank == 0  # the rank that prints and writes files
+    if args.timing:
+        TM.enable(device)  # before the program is built: its graphs carry the stamps
     if args.mode == "loam":
         pipe = PL.LoamPipeline(cfg, device=device, dtype=torch.float32)
     else:
@@ -307,7 +310,7 @@ def _replay(args, mesh=None):
     mq = native.MeasurementQueue(cfg.estimator.msg_time_delay)
     global_map = (native.GlobalVoxelMap(cfg.mapping.map_filter_size)
                   if args.map_out and writer else None)
-    timer = StageTimer(enabled=args.timing, sync=args.timing)
+    timer = StageTimer(enabled=args.timing)
     knn_launches0 = knn_kernel.launches()
     # host syncs of the steady INITED sweeps (the pipeline's calls only:
     # flushes, checkpoints and the 4D builder read back on purpose); the
@@ -395,7 +398,7 @@ def _replay(args, mesh=None):
                 return pipe.process(pf, None, samples)  # cloud already on its way
             return pipe.process(xyz, mask, samples, ring_ids=ring)
 
-        with timer.stage("pipeline", sync_on=device):
+        with timer.stage("pipeline"):
             if steady is not None and pipe.stage == "INITED":
                 out = steady.step(process, pipe)
             else:
@@ -409,7 +412,7 @@ def _replay(args, mesh=None):
                 stats["est_launches"] += knn_kernel.launches() - k0
         if builder is not None and out.get("stage") == "INITED" \
                 and "corner_cloud" in out and not out.get("predicted"):
-            with timer.stage("map_builder", sync_on=device):
+            with timer.stage("map_builder"):
                 mb_out = builder.step(out["corner_cloud"], out["surf_cloud"], pose)
             pend_t4.append(t)
             pend_q4.append(mb_out["pose"].q)
@@ -623,6 +626,8 @@ def _replay(args, mesh=None):
         print(f"wrote checkpoint to {args.checkpoint_out}")
     if args.timing:
         print(timer.report())
+        print(TM.report(TM.TRACER.collect()))
+        TM.disable()
         print(f"knn kernel launches: {knn_kernel.launches() - knn_launches0}")
     return 0
 
@@ -893,7 +898,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--self-filter", action="store_true",
                    help="KAIST-rig vehicle crop-box self-filter (input_filters_node.cc)")
     p.add_argument("--timing", action="store_true",
-                   help="per-stage wall-clock report, each stage synchronised with the card")
+                   help="per-stage host ms, and the program's spans, device stamps (ms per "
+                        "graph part), captures and replays per graph key and bytes staged a "
+                        "sweep")
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace (trace.json) here")
     p.add_argument("--checkpoint-out", default=None)

@@ -10,6 +10,14 @@
 // after it, makes the parent's later work depend on that node, and starts
 // capturing `body` into the node's body graph. The caller enqueues the
 // body's work on `body`, then calls lio_if_end(body). CUDA >= 12.4.
+//
+// lio_stamp: a one-thread kernel on `stream` that reads the device's
+// nanosecond clock (%globaltimer), takes the next slot of a ring of
+// `mask` + 1 entries (a power of two) with atomicAdd on `count`, and writes
+// (tag, ns) there. Launched while a stream is captured, it becomes a node
+// of the graph, its tag fixed; inside a conditional body it runs only where
+// the body runs. `count` keeps counting past the ring's size, so the
+// entries overwritten are count - (mask + 1).
 
 #include <cuda_runtime.h>
 
@@ -21,9 +29,26 @@ __global__ void set_if_kernel(cudaGraphConditionalHandle handle, const bool* fla
   cudaGraphSetConditional(handle, value);
 }
 
+__global__ void stamp_kernel(unsigned long long* count, int* tags, long long* ns, int tag,
+                             unsigned long long mask) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  unsigned long long slot = atomicAdd(count, 1ull) & mask;
+  tags[slot] = tag;
+  ns[slot] = (long long)now;
+}
+
 }  // namespace
 
 extern "C" {
+
+int lio_stamp(void* stream, void* count, void* tags, void* ns, int tag,
+              unsigned long long mask) {
+  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(count), static_cast<int*>(tags),
+      static_cast<long long*>(ns), tag, mask);
+  return (int)cudaGetLastError();
+}
 
 int lio_if_begin(void* parent, void* body, const void* flag, int negate) {
   cudaStream_t ps = static_cast<cudaStream_t>(parent);

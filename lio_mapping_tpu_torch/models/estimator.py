@@ -431,7 +431,7 @@ def local_map(st: EstimatorState, cfg: LioConfig):
     return rel, maps
 
 
-# Profiling hook (tools/profile_waterfall.py): one of "window", "map",
+# Profiling hook (the reference's tools/profile_waterfall.py): one of "window", "map",
 # "assoc", "gates", "solve" ends the step right after that stage and returns
 # (st, debug dict), as the reference's hook does; each call then runs only
 # the step's prefix. None in production.

@@ -27,6 +27,7 @@ import torch
 from ..config import LioConfig
 from ..ops.cloud import Cloud
 from ..utils import quaternion as quat
+from ..utils import timing as TM
 from ..utils.se3 import Pose
 from ..utils.tree import tree_map
 from . import estimator as EST
@@ -79,6 +80,7 @@ class MapBuilder:
     def __init__(self, cfg: LioConfig, device=None, dtype=torch.float32, graphs: bool = None):
         self.cfg = cfg
         self.device = torch.device("cuda" if device is None else device)
+        TM.from_env(self.device)
         on_card = self.device.type == "cuda"
         if graphs and not on_card:
             raise ValueError("graphs=True needs a CUDA device")
@@ -92,7 +94,15 @@ class MapBuilder:
 
     def step(self, corner_cloud: Cloud, surf_cloud: Cloud, odom_pose: Pose) -> dict:
         """One builder step on the estimator's (copied) outputs; returns
-        ``{"pose": refined pose}``."""
+        ``{"pose": refined pose}``. With the tracer on, a host span
+        (``builder``) with a stamp launched before its device work."""
+        tr = TM.TRACER
+        if tr is None:
+            return self._step(corner_cloud, surf_cloud, odom_pose)
+        with tr.span("builder", device=True):
+            return self._step(corner_cloud, surf_cloud, odom_pose)
+
+    def _step(self, corner_cloud: Cloud, surf_cloud: Cloud, odom_pose: Pose) -> dict:
         if not self.graphs:
             self.state, out = map_builder_step(self.state, corner_cloud, surf_cloud, odom_pose,
                                                self.cfg)
@@ -111,4 +121,5 @@ class MapBuilder:
 
         g.stretch(("map_builder",), program, v)
         self.state = v["map"]
-        return {"pose": tree_map(torch.clone, v["pose"])}
+        with TM.span("outputs"):
+            return {"pose": tree_map(torch.clone, v["pose"])}

@@ -41,6 +41,14 @@ later replay overwrites. ``graphs=False`` runs the same program eagerly,
 as ``jax.disable_jit`` does for the reference; the CPU and the mesh
 always do.
 
+With the tracer on (``utils/timing.py``) ``process`` is a host span
+(``process``, its note the sweep's kind: boot, consumed, skipped or loam,
+a stamp launched before its device work), inside which the spans ``stage``
+(each copy of a cloud or an IMU interval to the device, with its bytes),
+``capture`` and ``replay`` (the runner's), ``init`` (the host
+initialisation) and ``outputs`` (the copies handed out) lie; a graphed
+sweep's front end ends at a stamp of its own (``front``).
+
 ``LoamPipeline``: the LiDAR-only baseline, front end -> scan-to-scan
 odometry -> scan-to-map refinement (``models/mapping.py``) every
 ``odometry.io_ratio``-th sweep; with ``graphs`` one CUDA graph a sweep
@@ -61,6 +69,7 @@ from ..ops.cloud import Cloud
 from ..parallel import lio_dist
 from ..parallel import multihost as MH
 from ..utils import quaternion as quat
+from ..utils import timing as TM
 from ..utils.se3 import Pose
 from ..utils.tree import tree_map, tree_stack
 from . import estimator as EST
@@ -147,23 +156,27 @@ def _stage_cloud(g: SG.StepGraphs, v: dict, start_ori, dtype, xyz=None, mask=Non
     width = pf.xyzw.shape[1] if pf is not None else (4 if ring is None else 5)
     rows = cloud_rows_bucket(n)
     buf = g.buffer(("xyzw", rows), (rows, width), torch.float32)
-    if pf is not None:
-        buf[:n].copy_(pf.xyzw)
-        buf[n:].zero_()
-    else:
-        host = torch.zeros((rows, width), dtype=torch.float32, pin_memory=g.capture)
-        _pack_xyzw_np(xyz, mask, ring, out=host.numpy()[:n])
-        buf.copy_(host, non_blocking=True)
-    v["xyzw"] = buf
-    if start_ori is not None:
-        v["start_ori"] = g.buffer("start_ori", (), dtype)
-        v["start_ori"].fill_(start_ori)
+    with TM.span("stage", "cloud", 0 if pf is not None else rows * width * 4):
+        if pf is not None:
+            buf[:n].copy_(pf.xyzw)
+            buf[n:].zero_()
+        else:
+            host = torch.zeros((rows, width), dtype=torch.float32, pin_memory=g.capture)
+            _pack_xyzw_np(xyz, mask, ring, out=host.numpy()[:n])
+            buf.copy_(host, non_blocking=True)
+        v["xyzw"] = buf
+        if start_ori is not None:
+            v["start_ori"] = g.buffer("start_ori", (), dtype)
+            v["start_ori"].fill_(start_ori)
     return rows, width
 
 
-def _front(v: dict, dtype, cfg: LioConfig):
-    """The front end inside a graphed sweep's program, on its staged cloud."""
-    return _feats_from_xyzw(v["xyzw"].to(dtype), v.get("start_ori"), cfg)
+def _front(g: SG.StepGraphs, v: dict, dtype, cfg: LioConfig):
+    """The front end inside a graphed sweep's program, on its staged
+    cloud; a ``front`` stamp marks its end."""
+    feats = _feats_from_xyzw(v["xyzw"].to(dtype), v.get("start_ori"), cfg)
+    g.mark("front")
+    return feats
 
 
 def _predict_pose(st, samples: PI.ImuSamples, w: int) -> Pose:
@@ -214,6 +227,7 @@ class LioPipeline:
         self.ingest_shard = bool(ingest_shard) and mesh is not None
         self.device = resolve_device(device)
         self.dtype = dtype
+        TM.from_env(self.device)
         on_card = self.device.type == "cuda" and mesh is None
         if graphs and not on_card:
             raise ValueError("graphs=True needs a CUDA device and no mesh")
@@ -257,7 +271,8 @@ class LioPipeline:
         return torch.empty(t.shape, dtype=torch.float32, pin_memory=True).copy_(t)
 
     def _samples(self, packed: np.ndarray) -> PI.ImuSamples:
-        t = self._host_f32(packed).to(self.device, non_blocking=True).to(self.dtype)
+        with TM.span("stage", "imu", packed.size * 4):
+            t = self._host_f32(packed).to(self.device, non_blocking=True).to(self.dtype)
         return PI.unpack_samples(t)
 
     def _is_compact(self, frame_count: int) -> bool:
@@ -288,13 +303,17 @@ class LioPipeline:
         to ceil(N / D) rows with mask 0, and the slices are gathered in rank
         order and cut back to the N rows: the front end gets the same cloud
         as without it."""
+        width = 4 if ring is None else 5
         if not self.ingest_shard:
-            return _upload_cloud(xyz, mask, ring, self.device, self.dtype, non_blocking)
+            with TM.span("stage", "cloud", len(xyz) * width * 4):
+                return _upload_cloud(xyz, mask, ring, self.device, self.dtype, non_blocking)
         n, mesh = len(xyz), self.mesh
         per = -(-n // mesh.size)
         lo, hi = min(mesh.rank * per, n), min((mesh.rank + 1) * per, n)
-        part = _upload_cloud(xyz[lo:hi], mask[lo:hi], None if ring is None else ring[lo:hi],
-                             self.device, self.dtype, non_blocking)
+        with TM.span("stage", "cloud", (hi - lo) * width * 4):
+            part = _upload_cloud(xyz[lo:hi], mask[lo:hi],
+                                 None if ring is None else ring[lo:hi], self.device, self.dtype,
+                                 non_blocking)
         if hi - lo < per:
             part = torch.cat([part, part.new_zeros((per - (hi - lo), part.shape[1]))])
         return MH.all_gather_rows(part, mesh)[:n]
@@ -310,7 +329,8 @@ class LioPipeline:
         dtype = self.dtype
         g.stretch(("predict",), lambda v: {"pred": _predict_pose(
             v["state"], PI.unpack_samples(v["packed"].to(dtype)), w)}, v)
-        return tree_map(torch.clone, v["pred"])
+        with TM.span("outputs"):
+            return tree_map(torch.clone, v["pred"])
 
     def graph_captures(self) -> int:
         """CUDA graphs captured so far (0 on the eager path)."""
@@ -329,7 +349,8 @@ class LioPipeline:
         g = self._runner()
         m = self.cfg.estimator.imu.max_imu_per_frame
         v = {"packed": g.buffer("packed", (m + 1, 7), torch.float32)}
-        v["packed"].copy_(self._host_f32(packed), non_blocking=True)
+        with TM.span("stage", "imu", (m + 1) * 7 * 4):
+            v["packed"].copy_(self._host_f32(packed), non_blocking=True)
         g.bind(v, "state", self.est_state)
         self.est_state = v["state"]
         return g, v
@@ -357,7 +378,7 @@ class LioPipeline:
             key = ("step",) + _stage_cloud(g, v, start_ori, dtype, xyz, mask, ring, pf)
 
             def front(v):
-                feats = _front(v, dtype, cfg)
+                feats = _front(g, v, dtype, cfg)
                 corner = feats.corner_less_sharp if cfg.estimator.use_corner else None
                 return feats.surf_less_flat, corner, samples(v), {
                     "corner_cloud": feats.corner_less_sharp,
@@ -371,7 +392,8 @@ class LioPipeline:
         g.stretch(key, program, v)
         self.est_state = v["state"]
         # the next replay overwrites the graphs' buffers: hand out copies
-        return tree_map(torch.clone, v["out"])
+        with TM.span("outputs"):
+            return tree_map(torch.clone, v["out"])
 
     def _graphed_odometry(self, start_ori, push: bool, xyz=None, mask=None, ring=None,
                           pf: "PrefetchedCloud" = None):
@@ -388,7 +410,8 @@ class LioPipeline:
         key = ("odometry", push) + _stage_cloud(g, v, start_ori, dtype, xyz, mask, ring, pf)
 
         def program(v):
-            state, odo_out = ODO.odometry_program(g, v, cfg, front=lambda v: _front(v, dtype, cfg))
+            state, odo_out = ODO.odometry_program(
+                g, v, cfg, front=lambda v: _front(g, v, dtype, cfg))
             out = {"odom": state, "odo_out": {k: odo_out[k] for k in
                                               ("pose", "corner_cloud", "surf_cloud")}}
             if push:
@@ -397,8 +420,9 @@ class LioPipeline:
 
         g.stretch(key, program, v)
         self.odom_state = v["odom"]
-        return (tree_map(torch.clone, v["odo_out"]),
-                tree_map(torch.clone, v["stack"]) if push else None)
+        with TM.span("outputs"):
+            return (tree_map(torch.clone, v["odo_out"]),
+                    tree_map(torch.clone, v["stack"]) if push else None)
 
     @staticmethod
     def _host_predict_pose(snap: dict, packed: np.ndarray) -> Pose:
@@ -462,6 +486,19 @@ class LioPipeline:
         """Process one sweep (+ its packed IMU interval). Returns pose outputs.
 
         ``xyz`` may be a :class:`PrefetchedCloud` (``mask`` is then None)."""
+        tr = TM.TRACER
+        if tr is None:
+            return self._process(xyz, mask, samples, ring_ids)
+        with tr.span("process", self._sweep_kind(), sweep=self.frame_count + 1, device=True):
+            return self._process(xyz, mask, samples, ring_ids)
+
+    def _sweep_kind(self) -> str:
+        """What the next sweep will be: boot, consumed or skipped."""
+        if self.stage != "INITED":
+            return "boot"
+        return "consumed" if self._is_compact(self.frame_count + 1) else "skipped"
+
+    def _process(self, xyz, mask, samples, ring_ids) -> dict:
         cfg = self.cfg
         pf = None
         if isinstance(xyz, PrefetchedCloud):
@@ -531,7 +568,9 @@ class LioPipeline:
                 self._init_samples.append(np.asarray(merged, np.float32))
                 self._init_stacks.append(stack)
                 if len(self._init_odom_poses) == cfg.estimator.window_size + 1:
-                    if self._try_initialize():
+                    with TM.span("init"):
+                        inited = self._try_initialize()
+                    if inited:
                         self.stage = "INITED"
                     else:
                         self._init_odom_poses.pop(0)
@@ -731,6 +770,7 @@ class LoamPipeline:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
+        TM.from_env(self.device)
         on_card = self.device.type == "cuda"
         if graphs and not on_card:
             raise ValueError("graphs=True needs a CUDA device")
@@ -744,6 +784,13 @@ class LoamPipeline:
 
     def process(self, xyz: np.ndarray, mask: np.ndarray,
                 ring_ids: Optional[np.ndarray] = None) -> dict:
+        tr = TM.TRACER
+        if tr is None:
+            return self._process(xyz, mask, ring_ids)
+        with tr.span("process", "loam", sweep=self.frame_count + 1, device=True):
+            return self._process(xyz, mask, ring_ids)
+
+    def _process(self, xyz, mask, ring_ids) -> dict:
         cfg = self.cfg
         _check_ring(cfg, ring_ids)
         start_ori = None
@@ -754,7 +801,8 @@ class LoamPipeline:
         if self.graphs:
             return self._graphed(mapped, start_ori, xyz, mask, ring_ids)
 
-        xyzw = _upload_cloud(xyz, mask, ring_ids, self.device, self.dtype)
+        with TM.span("stage", "cloud", len(xyz) * (4 if ring_ids is None else 5) * 4):
+            xyzw = _upload_cloud(xyz, mask, ring_ids, self.device, self.dtype)
         feats = _feats_from_xyzw(xyzw, start_ori, cfg)
         self.odom_state, odo_out = ODO.odometry_step(self.odom_state, feats, cfg)
         if mapped:
@@ -780,7 +828,8 @@ class LoamPipeline:
             g, v, start_ori, dtype, xyz, mask, ring)
 
         def program(v):
-            odom, odo_out = ODO.odometry_program(g, v, cfg, front=lambda v: _front(v, dtype, cfg))
+            odom, odo_out = ODO.odometry_program(g, v, cfg,
+                                                 front=lambda v: _front(g, v, dtype, cfg))
             out = {"odom": odom, "odom_pose": odo_out["pose"]}
             if mapped:
                 v.update(corner_cloud=odo_out["corner_cloud"], surf_cloud=odo_out["surf_cloud"],
@@ -793,8 +842,9 @@ class LoamPipeline:
 
         g.stretch(key, program, v)
         self.odom_state, self.map_state = v["odom"], v["map"]
-        return {"stage": "LOAM", "laser_pose": tree_map(torch.clone, v["pose"]),
-                "odom_pose": tree_map(torch.clone, v["odom_pose"])}
+        with TM.span("outputs"):
+            return {"stage": "LOAM", "laser_pose": tree_map(torch.clone, v["pose"]),
+                    "odom_pose": tree_map(torch.clone, v["odom_pose"])}
 
     def graph_captures(self) -> int:
         """CUDA graphs captured so far (0 on the eager path)."""

@@ -41,7 +41,15 @@ the card as ONE graph per key, and reads nothing back:
   the ``eigh``'s) are recorded at capture with the Python frames
   that made them and counted at each replay; those inside a conditional
   body are counted on the device (one counter a body, bumped by the body)
-  and added when the counts are read (``launches.settle``).
+  and added when the counts are read (``launches.settle``);
+* with the tracer on (``utils/timing.py``) a capture stamps the graph's
+  start and end, each inner stretch's start (its key, as ``head``,
+  ``lm.0``, ``odo.head``) and each conditional body's start and end (a
+  body the device skips leaves no stamp); :meth:`StepGraphs.mark` adds a
+  boundary of the program's own (the pipeline's ``front``). Each capture
+  and replay is a host span with its key, and ``stats["by_key"]`` counts
+  captures, replays and capture seconds per key (on the CPU a key's first
+  call stands for its capture, later calls for its replays).
 
 On the CPU the runner executes the program eagerly through the same static
 buffers, under :class:`HostReadGuard`, which fails on any op that would
@@ -60,6 +68,7 @@ import contextlib
 import ctypes
 import sys
 import threading
+import time
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
@@ -68,6 +77,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from ..ops import cuda_build
 from ..ops import eigh as EIGH
 from ..ops import launches as LC
+from ..utils import timing as TM
 from ..utils.tree import tree_map
 from . import estimator as EST
 
@@ -221,10 +231,16 @@ def build_if_nodes():
     return cuda_build.build("graph_if.cu", "lioif")
 
 
-class _Graph:
-    __slots__ = ("graph", "outputs", "reads", "events", "bodies", "runs", "settled", "outer")
+def key_name(key) -> str:
+    """A graph's or a stretch's key as a name: its parts joined by dots."""
+    return ".".join(str(part) for part in key)
 
-    def __init__(self, graph, outputs, reads, events, bodies, runs):
+
+class _Graph:
+    __slots__ = ("graph", "outputs", "reads", "events", "bodies", "runs", "settled", "outer",
+                 "name")
+
+    def __init__(self, graph, outputs, reads, events, bodies, runs, name):
         self.graph = graph
         self.outputs = outputs  # name -> value over static buffers
         self.reads = reads      # name -> _signature at capture
@@ -233,6 +249,7 @@ class _Graph:
         self.runs = runs        # (MAX_BODIES,) int64: each body's runs, on the device
         self.settled = [0] * len(bodies)
         self.outer = ()
+        self.name = name        # the key as a name
 
     def settle(self):
         """Count the launches of the bodies that ran since the last settle
@@ -251,9 +268,11 @@ class StepGraphs:
     docstring.
 
     ``stats`` counts what ran: graphs (top-level stretches), replays and
-    captures, conditional bodies met (``conditionals``), host decisions
-    (``decisions``: none on this runner), the flags read by the warm-up
-    before a capture (``warmup_reads``) and the copies made to bind inputs."""
+    captures (on the CPU: first and later calls of a key), conditional
+    bodies met (``conditionals``), host decisions (``decisions``: none on
+    this runner), the flags read by the warm-up before a capture
+    (``warmup_reads``), the copies made to bind inputs, and per key name
+    (``by_key``) its captures, replays and capture seconds."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -271,17 +290,22 @@ class StepGraphs:
         else:
             self.pool = self.body_pool = self.stream = self.body_stream = None
         self.stats = {"stretches": 0, "replays": 0, "captures": 0, "conditionals": 0,
-                      "decisions": 0, "warmup_reads": 0, "bind_copies": 0}
+                      "decisions": 0, "warmup_reads": 0, "bind_copies": 0, "by_key": {}}
         self.guard_ops = set()  # every op seen under the guard (on the CPU)
         self._mode = None   # inside a program: "cpu", "warm" or "capture"
         self._guard = None
-        self._capturing = None  # (bodies, runs) of the graph being captured
+        self._capturing = None  # (bodies, runs, names) of the graph being captured
+        self._top = None    # the name of the graph whose program runs
+        tr = TM.TRACER
+        if tr is not None:
+            tr.runner(self.stats["by_key"])
 
     # -- the runner protocol of estimator.step_program ----------------------
     def stretch(self, key, fn, v: dict):
         """At the top level one graph: replay it, or capture it the first
         time; inside a graph's program, run ``fn`` in place."""
         if self._mode is not None:
+            self.mark(key)
             v.update(fn(v))
             return
         if EST._TRUNCATE_STAGE is not None:
@@ -289,40 +313,85 @@ class StepGraphs:
                              "graphs=False to use estimator._TRUNCATE_STAGE")
         self.stats["stretches"] += 1
         if not self.capture:
-            reads = _Reads(v)
-            self._mode = "cpu"
-            try:
-                with self._guarded(HOST_READS | EIGH_OPS, f"graph {key}"):
-                    out = fn(reads)
-            finally:
-                self._mode = None
-            # what a replay on the card checks: the same input buffers as
-            # the key's first call (a body skipped there read nothing)
-            seen = self._seen.setdefault(key, {})
-            bad = sorted(name for name in reads.names if name in seen
-                         and seen[name] != _signature(v, name))
-            if bad:
-                raise RuntimeError(f"graph {key}: inputs {bad} are not the buffers of its "
-                                   "first call")
-            seen.update({name: _signature(v, name) for name in reads.names})
-            v.update(self._store(out))
+            self._cpu_stretch(key, fn, v)
             return
         g = self._graphs.get(key)
         if g is None:
-            self._graphs[key] = g = self._capture(key, fn, v)
+            name = key_name(key)
+            t0 = time.perf_counter()
+            self._top = name
+            try:
+                with TM.span("capture", name):
+                    self._graphs[key] = g = self._capture(key, fn, v, name)
+            finally:
+                self._top = None
+            self._count(name, "captures", time.perf_counter() - t0)
             v.update(g.outputs)
             return
         for name, sig in g.reads.items():
             if _signature(v, name) != sig:
                 raise RuntimeError(f"graph {key}: input {name!r} is not the buffer it was "
                                    "captured with")
-        g.graph.replay()
+        with TM.span("replay", g.name):
+            g.graph.replay()
         self.stats["replays"] += 1
+        self._count(g.name, "replays")
         LC.replayed(g.events)
         if g.bodies:
             g.outer = LC.outer_stack()
             LC.defer(g)
         v.update(g.outputs)
+
+    def mark(self, stage, edge: str = "at"):
+        """With the tracer on, a stamp of ``stage`` (a name, or a key)
+        inside the program that runs (captured with it): ``edge`` "at" a
+        boundary, or a body's "start" or "end"."""
+        tr = TM.TRACER
+        if tr is not None and self._top is not None:
+            if not isinstance(stage, str):
+                stage = key_name(stage)
+            tr.stamp(TM.tag(self._top, stage, edge))
+
+    def _count(self, name: str, what: str, seconds: float = 0.0):
+        rec = self.stats["by_key"].get(name)
+        if rec is None:
+            rec = self.stats["by_key"][name] = {"captures": 0, "replays": 0, "capture_s": 0.0}
+        rec[what] += 1
+        rec["capture_s"] += seconds
+
+    def _cpu_stretch(self, key, fn, v: dict):
+        """A top-level stretch on the CPU: the program run eagerly under
+        the host-read guard, its inputs held to the buffers of the key's
+        first call."""
+        name = key_name(key)
+        first = key not in self._seen
+        t0 = time.perf_counter()
+        with TM.span("capture" if first else "replay", name):
+            reads = _Reads(v)
+            self._mode, self._top = "cpu", name
+            try:
+                self.mark("graph", "start")
+                with self._guarded(HOST_READS | EIGH_OPS, f"graph {key}"):
+                    out = fn(reads)
+                self._mode = None
+                # what a replay on the card checks: the same input buffers
+                # as the key's first call (a body skipped there read nothing)
+                seen = self._seen.setdefault(key, {})
+                bad = sorted(n for n in reads.names if n in seen and seen[n] != _signature(v, n))
+                if bad:
+                    raise RuntimeError(f"graph {key}: inputs {bad} are not the buffers of its "
+                                       "first call")
+                seen.update({n: _signature(v, n) for n in reads.names})
+                v.update(self._store(out))
+                self.mark("graph", "end")
+            finally:
+                self._mode = self._top = None
+        if first:
+            self.stats["captures"] += 1
+            self._count(name, "captures", time.perf_counter() - t0)
+        else:
+            self.stats["replays"] += 1
+            self._count(name, "replays")
 
     def when(self, v: dict, stop: str, key, fn):
         """A conditional body: ``fn`` runs unless the device flag ``v[stop]``
@@ -337,9 +406,11 @@ class StepGraphs:
             with self._guard.paused():
                 run = not bool(v[stop])
             if run:
+                self.mark(key, "start")
                 EST.commit(v, fn(v))
+                self.mark(key, "end")
         elif mode == "warm":
-            self._warm_body(v, stop, fn)
+            self._warm_body(v, stop, key, fn)
         else:
             self._capture_body(v, stop, key, fn)
 
@@ -417,7 +488,7 @@ class StepGraphs:
             self.stats["bind_copies"] += len(pairs)
         return result
 
-    def _warm_body(self, v: dict, stop: str, fn):
+    def _warm_body(self, v: dict, stop: str, key, fn):
         """The warm-up's conditional body, on the body stream: run for real
         where the flag says so (one host read), on copies of the values
         otherwise, so that every body has run once before the capture."""
@@ -428,14 +499,16 @@ class StepGraphs:
         b.wait_stream(cur)
         with torch.cuda.stream(b):
             if run:
+                self.mark(key, "start")
                 EST.commit(v, fn(v))
+                self.mark(key, "end")
             else:
                 fn(tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, dict(v)))
         cur.wait_stream(b)
 
     def _capture_body(self, v: dict, stop: str, key, fn):
         """Capture ``fn`` into an IF node run where ``v[stop]`` is false."""
-        bodies, runs = self._capturing
+        bodies, runs, names = self._capturing
         if len(bodies) >= MAX_BODIES:
             raise RuntimeError(f"more than {MAX_BODIES} conditional bodies in one graph")
         flag = v[stop]
@@ -453,8 +526,10 @@ class StepGraphs:
                     torch.cuda.stream(b):
                 torch._C._cuda_beginAllocateCurrentStreamToPool(self._dev, self.body_pool)
                 try:
+                    self.mark(key, "start")
                     EST.commit(v, fn(v))
                     runs[slot:slot + 1].add_(1)
+                    self.mark(key, "end")
                 finally:
                     torch._C._cuda_endAllocateToPool(self._dev, self.body_pool)
         finally:
@@ -462,8 +537,9 @@ class StepGraphs:
         if err != 0:
             raise RuntimeError(f"body {key}: its capture failed: cudaError {err}")
         bodies.append(events)
+        names.append(key_name(key))
 
-    def _capture(self, key, fn, v: dict) -> _Graph:
+    def _capture(self, key, fn, v: dict, name: str) -> _Graph:
         """Warm the program up eagerly on the side stream (its results
         serve this sweep; every conditional body runs once), then capture
         it into a graph that writes the same static buffers."""
@@ -473,24 +549,28 @@ class StepGraphs:
         self._mode = "warm"
         try:
             with torch.cuda.stream(s):
+                self.mark("graph", "start")
                 outputs = self._store(fn(dict(v)))
+                self.mark("graph", "end")
         finally:
             self._mode = None
         reads = _Reads(v)
         graph = torch.cuda.CUDAGraph()
         runs = torch.zeros(MAX_BODIES, dtype=torch.int64, device=self.device)
-        bodies = []
+        bodies, names = [], []
         s.wait_stream(cur)
         # capture_begin/_end as ``torch.cuda.graph`` calls them, without its
         # synchronize, gc.collect and empty_cache before each capture (the
         # last sends the next sweep's eager allocations back to cudaMalloc)
-        self._mode, self._capturing = "capture", (bodies, runs)
+        self._mode, self._capturing = "capture", (bodies, runs, names)
         try:
             with LC.recording(stop=StepGraphs._capture.__code__) as events, \
                     torch.cuda.stream(s):
                 graph.capture_begin(self.pool)
                 try:
+                    self.mark("graph", "start")
                     self._store(fn(reads))
+                    self.mark("graph", "end")
                 except BaseException:
                     try:
                         graph.capture_end()
@@ -502,5 +582,8 @@ class StepGraphs:
             self._mode, self._capturing = None, None
         cur.wait_stream(s)
         self.stats["captures"] += 1
-        return _Graph(graph, outputs, {name: _signature(v, name) for name in reads.names},
-                      events, bodies, runs)
+        tr = TM.TRACER
+        if tr is not None:
+            tr.captured(name, names, runs)
+        return _Graph(graph, outputs, {n: _signature(v, n) for n in reads.names},
+                      events, bodies, runs, name)

@@ -4,8 +4,6 @@
     python -m lio_mapping_tpu_torch.tools.bench            # steady frames/s
     python -m lio_mapping_tpu_torch.tools.bench_cli        # the CLI's phase B
     python -m lio_mapping_tpu_torch.tools.profile_step     # stage ms, GFLOP, GB/s
-    python -m lio_mapping_tpu_torch.tools.profile_e2e      # front end vs step
-    python -m lio_mapping_tpu_torch.tools.profile_waterfall  # step prefixes
     python -m lio_mapping_tpu_torch.tools.ab_flags         # accuracy/cost flags
     python -m lio_mapping_tpu_torch.tools.bench_scaling    # the mesh's BA step
     python -m lio_mapping_tpu_torch.tools.debug_corner     # use_corner x fix_map

@@ -259,6 +259,8 @@ def single(seq):
                 "--stats-json", str(seq["dir"] / f"{tag}.json")]
         if sf:
             args.append("--self-filter")
+        else:
+            args.append("--timing")
         import contextlib
         import io
 
@@ -284,6 +286,21 @@ def test_run_on_the_cpu_reaches_inited(seq, single):
     np.testing.assert_allclose(t, tg[:len(t)], atol=1e-9)
     assert "stage: INITED" in single["sf"]
     assert _n_voxels(seq["dir"] / "sf.pcd") > 500
+
+
+def test_run_timing_reads_the_tracer(single):
+    """``--timing``: the stages' host ms, then the tracer's report (host
+    spans of every sweep kind, bytes staged, the clock), and the tracer off
+    again at the end."""
+    from lio_mapping_tpu_torch.utils import timing as TM
+
+    out = single["plain"]
+    for line in ("stage ", "pipeline", "host span", "process:boot", "process:consumed",
+                 "stage:cloud", "init", "staged to the device:", "clock: 2 calibrations",
+                 "knn kernel launches:"):
+        assert line in out, line
+    assert "host span" not in single["sf"]
+    assert TM.TRACER is None
 
 
 @pytest.mark.parametrize("self_filter", [False, True])

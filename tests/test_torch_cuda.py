@@ -979,3 +979,213 @@ def test_lu_solve_kernel_contract(dev):
         with pytest.raises(ValueError):
             TLU.solve(bad_a, bad_b)
     assert TLU.launches() == before
+
+
+# ---------------------------------------------------------------------------
+# the program's tracer (utils/timing.py, csrc/graph_if.cu's stamp kernel)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tracer(dev):
+    from lio_mapping_tpu_torch.utils import timing as TM
+
+    tr = TM.enable(dev)
+    yield tr
+    TM.disable()
+
+
+N_BODIES = 5
+
+
+def _countdown(g):
+    """A graph program: a stretch, ``N_BODIES`` bodies each run while the
+    count ``x`` (from the input ``n``) is above 0, and a matrix product
+    times what is left of the count."""
+    def program(v):
+        g.stretch(("head",), lambda v: {"x": v["n"].clone(), "stop": v["n"] <= 0}, v)
+        for it in range(N_BODIES):
+            g.when(v, "stop", ("body", it),
+                   lambda v: {"x": v["x"] - 1, "stop": (v["x"] - 1) <= 0})
+        return {"y": (v["m"] @ v["m"]) * v["x"]}
+    return program
+
+
+def _replay_countdown(g, counts, dev):
+    m = torch.ones((64, 64), device=dev)
+    for n in counts:
+        v = {}
+        g.bind(v, "m", m)
+        g.bind(v, "n", torch.tensor(n, device=dev))
+        g.stretch(("countdown",), _countdown(g), v)
+        yield v
+
+
+@pytest.mark.cuda
+def test_stamp_kernel_builds_and_stamps_in_order(tracer):
+    """Stamps launched from the host land in the ring in launch order, on a
+    clock that does not go back, mapped to the host clock between two
+    calibrations of a narrow bracket."""
+    from lio_mapping_tpu_torch.utils import timing as TM
+
+    tags = [TM.tag("order", f"s.{i}") for i in range(200)]
+    x = torch.ones((256, 256), device=tracer.device)
+    for t in tags:
+        tracer.stamp(t)
+        x = x @ x * 1e-3
+    rec = tracer.collect()
+    st = rec["stamps"]
+    assert st["tag"].tolist() == tags
+    assert (np.diff(st["ns"]) >= 0).all() and st["ns"][-1] > st["ns"][0]
+    cal = rec["clock"]["calibrations"]
+    assert len(cal) == 2 and rec["clock"]["lost"] == 0 and rec["clock"]["on_card"]
+    assert cal[0][0] <= st["ns"][0] and st["ns"][-1] <= cal[1][0]
+    assert (cal[:, 2] < 1_000_000).all(), cal
+    print("stamp kernel: brackets", cal[:, 2].tolist(), "ns; drift", rec["clock"]["drift_ppm"])
+
+
+@pytest.mark.cuda
+def test_stamps_in_conditional_bodies_match_the_body_counters(dev, tracer):
+    """A graph of conditional bodies replayed with counts 0 to 7: each
+    replay stamps the bodies the device ran (start and end), none of those
+    it skipped, and the stamps add up to the bodies' device counters."""
+    from lio_mapping_tpu_torch.models import step_graph as SG
+    from lio_mapping_tpu_torch.utils import timing as TM
+
+    g = SG.StepGraphs(dev)
+    counts = [3] + list(range(8)) * 2
+    ys = [float(v["y"][0, 0]) for v in _replay_countdown(g, counts, dev)]
+    assert g.stats["captures"] == 1 and g.stats["replays"] == len(counts) - 1
+    rec = tracer.collect()
+    runs = [r for r in TM.graph_instances(rec) if r["graph"] == "countdown"]
+    # the first call's warm-up ran eagerly (its bodies stamped), its capture ran nothing
+    assert len(runs) == len(counts)
+    for r, n in zip(runs, counts):
+        bodies = [s for s, e, _ in r["marks"] if s.startswith("body.") and e == "start"]
+        ends = [s for s, e, _ in r["marks"] if s.startswith("body.") and e == "end"]
+        assert bodies == ends == [f"body.{k}" for k in range(min(n, N_BODIES))], n
+        assert [s for s, e, _ in r["marks"] if e == "at"] == ["head"]
+    b = rec["bodies"]
+    assert b["body"].tolist() == [f"body.{k}" for k in range(N_BODIES)]
+    stamped = [sum(1 for r in runs[1:] for s, e, _ in r["marks"]
+                   if s == f"body.{k}" and e == "start") for k in range(N_BODIES)]
+    assert b["runs"].tolist() == stamped
+    assert ys[1:] == [64.0 * max(n - N_BODIES, 0) for n in counts[1:]]
+
+
+@pytest.mark.cuda
+def test_clock_drift_over_50_s(dev, tracer):
+    """Over 50 s of stamps: the drift between the first and the last
+    calibration is reported, and a calibration taken halfway lies within
+    50 us of the straight line through them."""
+    import time
+
+    from lio_mapping_tpu_torch.utils import timing as TM
+
+    tick = TM.tag("drift", "tick")
+    x = torch.ones((512, 512), device=dev)
+    t_end = time.time() + 50.0
+    halfway = None
+    while time.time() < t_end:
+        tracer.stamp(tick)
+        x = (x @ x) * 1e-3
+        if halfway is None and time.time() > t_end - 25.0:
+            tracer.calibrate()
+            halfway = tracer._cal[-1]
+        time.sleep(0.01)
+    rec = tracer.collect()
+    cal = rec["clock"]["calibrations"]
+    assert len(cal) == 3
+    off_us = (int(tracer.to_host_ns(np.array([halfway[1]]))[0]) - halfway[0]) / 1e3
+    print(f"clock over {(cal[-1][0] - cal[0][0]) / 1e9:.1f} s: drift "
+          f"{rec['clock']['drift_ppm']:.4f} ppm, halfway calibration {off_us:.2f} us off "
+          f"the line, brackets {cal[:, 2].tolist()} ns")
+    assert abs(off_us) <= 50.0
+
+
+@pytest.mark.cuda
+def test_stamps_lie_on_the_host_clock_beside_the_profiler(dev, tracer):
+    """Under ``torch.profiler``, replays one at a time: each replay's start
+    stamp, mapped to the host clock, runs after the host's
+    ``cudaGraphLaunch`` began (within 200 us) and its end stamp before the
+    host's synchronize returned. Printed beside it: how far the profiler's
+    own kernel times (found by the launch's correlation id) lie outside
+    each replay's stamps."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lio_mapping_tpu_torch.models import step_graph as SG
+    from lio_mapping_tpu_torch.utils import timing as TM
+
+    g = SG.StepGraphs(dev)
+    counts = [3] + [5, 1, 4, 2] * 5
+    synced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in _replay_countdown(g, counts, dev):
+            torch.cuda.synchronize(dev)
+            synced.append(time.time_ns())
+    rec = tracer.collect()
+    runs = [r for r in TM.graph_instances(rec) if r["graph"] == "countdown"][1:]
+    launches, kernels = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name() == "cudaGraphLaunch":
+            launches.append((e.start_ns(), e.correlation_id()))
+        elif e.device_type().name == "CUDA":
+            for c in (e.correlation_id(), e.linked_correlation_id()):
+                kernels.setdefault(c, []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    launches.sort()
+    assert len(launches) == len(runs) == len(counts) - 1
+    lag, done, early, late = [], [], [], []
+    for (at, corr), r, t_sync in zip(launches, runs, synced[1:]):
+        lag.append(r["start"] - at)
+        done.append(t_sync - r["end"])
+        ks = kernels.get(corr, [])
+        assert ks, corr
+        early.append(r["start"] - min(a for a, _ in ks))
+        late.append(max(b for _, b in ks) - r["end"])
+    us = {name: (float(np.min(x)) / 1e3, float(np.median(x)) / 1e3, float(np.max(x)) / 1e3)
+          for name, x in (("lag", lag), ("done", done), ("early", early), ("late", late))}
+    print("replays on the host clock, us (min, median, max): start stamp after the host's "
+          "cudaGraphLaunch {lag}, end stamp before the host's synchronize returned {done}; "
+          "the profiler's first kernel before the start stamp {early}, its last kernel "
+          "after the end stamp {late}".format(**us))
+    assert 0 < min(lag) and max(lag) <= 200_000
+    assert min(done) > 0
+
+
+@pytest.mark.cuda
+def test_traced_graphed_pipeline_stamps_its_bodies(graph_runs):
+    """The graphed pipeline built with the tracer on gives the untraced
+    graphed pipeline's outputs bit for bit; each consumed INITED sweep's
+    graph has its ``front`` boundary and stamps ``solver_iterations`` - 1
+    LM bodies, and every call's device interval holds its graph."""
+    from lio_mapping_tpu_torch.models.pipeline import LioPipeline
+    from lio_mapping_tpu_torch.utils import timing as TM
+    from lio_mapping_tpu_torch.utils.tree import tree_leaves
+
+    tr = TM.enable("cuda")
+    try:
+        pipe = LioPipeline(graph_runs[True]["pipe"].cfg, device="cuda")
+        outs = [pipe.process(xyz, mask, pipe.make_samples(*imu))
+                for xyz, mask, imu in _graph_sweeps(pipe.cfg)]
+        rec = tr.collect()
+    finally:
+        TM.disable()
+    for i, (og, oe) in enumerate(zip(outs, graph_runs[True]["outs"])):
+        for key in oe:
+            for a, b in zip(tree_leaves(og[key]), tree_leaves(oe[key])):
+                if torch.is_tensor(b):
+                    assert torch.equal(a.cpu(), b), (i, key)
+    iters = [int(o["solver_iterations"]) for o in outs
+             if o["stage"] == "INITED" and "solver_iterations" in o]
+    steps = [r for r in TM.graph_instances(rec) if r["graph"].startswith("step.")]
+    assert len(steps) == len(iters) >= 6
+    for r, n in zip(steps, iters):
+        marks = [(s, e) for s, e, _ in r["marks"]]
+        assert ("front", "at") in marks
+        assert [s for s, e in marks if s.startswith("lm.") and e == "start"] == \
+            [f"lm.{k}" for k in range(1, n)]
+    sp = rec["spans"]
+    for r in TM.graph_instances(rec):
+        i = r["span"]
+        assert sp["dev_start_ns"][i] <= r["start"] <= r["end"] <= sp["dev_end_ns"][i]

@@ -264,7 +264,7 @@ def test_stage_timer_and_device_trace(tmp_path):
     jt.records = {k: list(v) for k, v in recs.items()}
     assert tt.summary() == jt.summary()
     assert tt.report() == jt.report()
-    with tt.stage("cpu", sync_on=torch.zeros(1)):
+    with tt.stage("cpu"):
         pass
     assert tt.summary()["cpu"]["count"] == 1
     off = TT.StageTimer(enabled=False)

@@ -41,15 +41,14 @@ from lio_mapping_tpu_torch.tools import bench as TB
 from lio_mapping_tpu_torch.tools import bench_cli as TBC
 from lio_mapping_tpu_torch.tools import bench_scaling as TBS
 from lio_mapping_tpu_torch.tools import debug_corner as TDC
-from lio_mapping_tpu_torch.tools import profile_e2e, profile_step, profile_waterfall
+from lio_mapping_tpu_torch.tools import profile_step
 from lio_mapping_tpu_torch.utils.profiling import CostCounter
 from lio_mapping_tpu_torch.utils.tree import tree_leaves
 from tools import ab_flags as JAB
 from tools import bench_cli as JBC
 from tools import debug_corner as JDC
 
-TOOLS = {"bench": TB, "bench_cli": TBC, "profile_step": profile_step,
-         "profile_e2e": profile_e2e, "profile_waterfall": profile_waterfall, "ab_flags": TAB,
+TOOLS = {"bench": TB, "bench_cli": TBC, "profile_step": profile_step, "ab_flags": TAB,
          "bench_scaling": TBS, "debug_corner": TDC}
 
 
