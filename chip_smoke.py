@@ -18,14 +18,16 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    512 vs 4096 corner points) and LOAM's scan-to-map surf search (6144
    queries against the 65536-point map store, gated), the outdoor_64
    estimator's (8192 queries against a 32768-point local map, gated, from
-   simulated HDL-64 sweeps) and a rank's searches of phase 15's 2-rank mesh
+   simulated HDL-64 sweeps), the 4D builder's corner search (2048 queries
+   against the 65536-row corner store, gated) and a rank's searches of
+   phase 15's 2-rank mesh
    (3072 queries against the 24576-point map, and against its 12288-row
    block when the map is sharded, gated), on inputs made by the port's own front end and
    ``insert_into_map`` from simulated sweeps; at the gated shapes also the
    kernel's tile flags against ``prune_flags``.
    Times from CUDA events after warm-up: the kernel's device work alone,
    the whole search as the main path calls it, one empty launch in the
-   same loop, the plain version and a library yardstick; the scan-to-map
+   same loop, the plain version and a library yardstick; LOAM's scan-to-map
    corner search (2048 x 65536, pinned to the plain version) is timed too.
    After phase 7, each of the search's kernels under ``torch.profiler``.
    The ``eigh`` kernel (float64 Householder and implicit QL) against its
@@ -99,7 +101,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 10. ``run --enable-4d --out-4d --timing`` on phase 5's log, in this
    process: the LIO poses equal phase 5's, one 4D pose per consumed INITED
    sweep, 4D ATE RMSE < max(2 x the LIO ATE, 0.3 m) (the reference's rule),
-   and the builder's surf search launched the kernel. The builder's steps
+   and the builder's searches, corner and surf, launched the kernel (its
+   launches counted by shape too) and never the plain version. The builder's steps
    (one CUDA graph each) are timed, four of them with their host syncs
    counted (0 expected), and run once more on a ``graphs=False`` builder on
    the same inputs: poses and final state bit for bit;
@@ -419,6 +422,8 @@ def knn_cases(traj, cfg):
          f_b.corner_sharp.mask.contiguous(), f_a.corner_less_sharp.xyz.contiguous(),
          f_a.corner_less_sharp.mask.contiguous(), 1, None),
         ("mapping_5nn_gated", *stores["surf"], 5, cfg.mapping.min_match_sq_dis),
+        # the 4D builder's corner search (LOAM's stays on the plain version)
+        ("builder_corner_5nn_gated", *stores["corner"], 5, cfg.mapping.min_match_sq_dis),
         # a rank of phase 15's 2-rank mesh: its half of the stack's rows
         # against the whole map, and against its half of the map's rows
         # (one ring step of the map-sharded search)
@@ -453,9 +458,10 @@ def outdoor64_case():
 
 
 def corner_plain(q, qm, db, dbm):
-    """The scan-to-map corner search, pinned to the plain version on the
+    """LOAM's scan-to-map corner search, pinned to the plain version on the
     card as the reference pins it: its time, beside the kernel's on the
-    same inputs (not used by the path) and the library yardstick."""
+    same inputs (the 4D builder's path: ``builder_corner_5nn_gated``) and
+    the library yardstick."""
     row = {"case": "mapping_corner_5nn_plain", "Q": q.shape[0], "M": db.shape[0], "k": 5,
            "valid_q": int(qm.sum()), "valid_m": int(dbm.sum()),
            "plain_ms": cuda_ms(lambda: KNN.knn_tiled(q, qm, db, dbm, k=5), DEV, reps=5),
@@ -1561,7 +1567,7 @@ def cli_4d(workdir):
     this process (launches and calls counted by path), ``evaluate`` of the
     LIO and the 4D trajectory."""
     p = lambda name: os.path.join(workdir, name)  # noqa: E731
-    by_path, calls, steps, made = {}, {}, [], []
+    by_path, calls, steps, made, shapes, plain = {}, {}, [], [], {}, {}
     knn_kernel.reset_launches()
     t0 = time.perf_counter()
     orig = MB.MapBuilder
@@ -1572,6 +1578,8 @@ def cli_4d(workdir):
         with launches_by_path(by_path, {"map_builder": (MB, "map_builder_program"),
                                         "lio_estimator_4d": (EST, "step_program"),
                                         "lio_odometry_4d": (ODO, "odometry_program")}), \
+                kernel_shapes(shapes), \
+                plain_searches(plain, {"map_builder": (MB, "map_builder_program")}), \
                 counted_calls(calls, {"estimator_steps": [(PL.LioPipeline, "_graphed_step"),
                                                           (EST, "lio_step_impl")]}):
             out = cli_inprocess("run", "--log", p("seq.liol"), "--profile", "indoor",
@@ -1601,7 +1609,8 @@ def cli_4d(workdir):
            "min_abs_qdot_vs_phase5": float(np.min(np.abs(np.sum(q_lio * q_sp, axis=-1))))
            if len(t_lio) == len(t_sp) else None,
            "map_builder_stage": stage.group(1).split() if stage else None,
-           "builder": builder_pair, "knn_launches_by_path": by_path, "run_s": run_s}
+           "builder": builder_pair, "knn_launches_by_path": by_path,
+           "knn_launches_by_shape": shapes, "builder_plain_searches": plain, "run_s": run_s}
     log("cli_4d " + json.dumps(row))
     if not all(builder_pair["equal_to_eager"].values()) or builder_pair["host_syncs_steady"]:
         raise AssertionError(f"the graphed 4D builder differs from the eager one, or made host "
@@ -1616,8 +1625,14 @@ def cli_4d(workdir):
                              f"and {row['estimator_steps']} estimator steps")
     if not ate_4d < row["ate_4d_limit_m"]:
         raise AssertionError(f"4D ATE RMSE {ate_4d} m >= {row['ate_4d_limit_m']} m")
-    if by_path.get("map_builder", 0) <= 0:
-        raise AssertionError("the 4D builder's surf search did not launch the kernel")
+    indoor = LioConfig.indoor()
+    builder_shapes = [f"{n}x{indoor.mapping.map_cloud_cap}x5"
+                      for n in (indoor.estimator.corner_stack_cap, indoor.estimator.surf_stack_cap)]
+    if by_path.get("map_builder", 0) <= 0 or min(shapes.get(s, 0) for s in builder_shapes) <= 0:
+        raise AssertionError(f"the 4D builder's searches did not launch the kernel at "
+                             f"{builder_shapes}: {shapes}")
+    if plain.get("map_builder", 0):
+        raise AssertionError(f"the 4D builder made {plain['map_builder']} plain searches")
     return row, by_path
 
 
@@ -2266,6 +2281,7 @@ def main():
 
     main_row = next(r for r in rows if r["case"] == "estimator_5nn_gated")
     map_row = next(r for r in rows if r["case"] == "mapping_5nn_gated")
+    bc_row = next(r for r in rows if r["case"] == "builder_corner_5nn_gated")
     o64_row = next(r for r in rows if r["case"] == "estimator64_5nn_gated")
     mesh_rows = {tag: next(r for r in rows if r["case"] == f"estimator_{tag}_5nn_gated")
                  for tag in ("mesh2", "mesh2_block")}
@@ -2279,6 +2295,7 @@ def main():
         "max_abs_err": max_err, **times(main_row),
         "scan_to_map": {"shape": [map_row["Q"], map_row["M"], map_row["k"]], **times(map_row),
                         "corner_plain_ms": corner_row["plain_ms"]},
+        "builder_corner": {"shape": [bc_row["Q"], bc_row["M"], bc_row["k"]], **times(bc_row)},
         "outdoor64": {"shape": [o64_row["Q"], o64_row["M"], o64_row["k"]], **times(o64_row)},
         **{tag: {"shape": [r["Q"], r["M"], r["k"]], **times(r)} for tag, r in mesh_rows.items()},
         "plain_closed_loop": {k: plain_loop[k] for k in ("inited_at_sweep", "ate_rmse_m")},

@@ -11,9 +11,11 @@ gravity, so the builder keeps them and refines yaw and translation only:
 * ``map_builder_step`` (MapBuilder.cc:220-540): the scan-to-map GN of
   ``models/mapping.py`` with ``yaw_constrained=True`` (the rotation
   Jacobian damped by diag(5e-3, 5e-3, 1) in the body frame, a
-  left-multiplied update) against the builder's own map stores. Its surf
-  search runs the CUDA KNN on the card; the corner search stays on the
-  plain tiled version, as in the LOAM back end;
+  left-multiplied update) against the builder's own map stores. Both its
+  5-NN searches, surf and corner, run the CUDA KNN on the card (the
+  corner one unlike LOAM's, which stays on the plain tiled version: the
+  benchmark's float64 redo of the builder's steps holds this path, and
+  nothing yet holds LOAM's mapped step);
 * ``MapBuilder``: the builder's state and step, one CUDA graph a step on
   the card (the reference's jitted ``map_builder_step``).
 """
@@ -62,9 +64,10 @@ def map_builder_step(state: MappingState, corner_cloud: Cloud, surf_cloud: Cloud
 
 def map_builder_program(run, v: dict, cfg: LioConfig) -> Tuple[MappingState, dict]:
     """The builder's step as a program: ``mapping.mapping_program`` with
-    the yaw-only prediction and the yaw-constrained GN (same values in
-    ``v``)."""
-    return mapping_program(run, v, cfg, predict=transform_4d_associate, yaw_constrained=True)
+    the yaw-only prediction, the yaw-constrained GN and the corner search
+    on the kernel (same values in ``v``)."""
+    return mapping_program(run, v, cfg, predict=transform_4d_associate, yaw_constrained=True,
+                           corner_force_tiled=False)
 
 
 class MapBuilder:

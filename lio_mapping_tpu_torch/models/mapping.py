@@ -15,9 +15,12 @@ PointMapping.cc).
   program, run eagerly by ``mapping_step`` (one host read an iteration)
   or captured into one CUDA graph by ``LoamPipeline`` on the card
   (``models/step_graph.py``). The surf search goes through ``ops/knn.knn`` with the match
-  gate (on the card: the CUDA kernel); the corner search is pinned to the
-  plain tiled version, as the reference pins it: near-tie flips there
-  tripled the LOAM ATE on the TPU.
+  gate (on the card: the CUDA kernel). The corner search is the caller's
+  choice (``corner_force_tiled``): LOAM's stays pinned to the plain tiled
+  version, as the reference pins it (near-tie flips of its TPU kernel
+  tripled the LOAM ATE there), because no check of LOAM's mapped step
+  could license the kernel; the 4D builder's runs the CUDA kernel, held
+  by the benchmark's float64 redo of its steps.
 """
 
 from __future__ import annotations
@@ -144,13 +147,16 @@ def _gn_start(db, stacks, pose0: Pose, go) -> dict:
                          torch.zeros((), dtype=torch.bool, device=dev))}
 
 
-def gn_bodies(run, v: dict, cfg: LioConfig, yaw_constrained: bool):
+def gn_bodies(run, v: dict, cfg: LioConfig, yaw_constrained: bool,
+              corner_force_tiled: bool = True):
     """The GN's iterations as conditional bodies under ``map_stop``
     (``estimator.step_program``'s protocol), over the values
-    :func:`_gn_start` made."""
+    :func:`_gn_start` made; ``corner_force_tiled`` as
+    :func:`_gn_iteration` takes it."""
     for it in range(cfg.mapping.max_iterations):
         run.when(v, "map_stop", ("map", it),
-                 lambda v, it=it: _gn_iteration(v, cfg, it, yaw_constrained))
+                 lambda v, it=it: _gn_iteration(v, cfg, it, yaw_constrained,
+                                                corner_force_tiled))
 
 
 def _gn_pose(v) -> Pose:
@@ -160,10 +166,13 @@ def _gn_pose(v) -> Pose:
     return Pose(torch.where(go, v["map_q"], pose0.q), torch.where(go, v["map_t"], pose0.t))
 
 
-def _gn_iteration(v, cfg: LioConfig, it: int, yaw_constrained: bool):
+def _gn_iteration(v, cfg: LioConfig, it: int, yaw_constrained: bool,
+                  corner_force_tiled: bool = True):
     """GN iteration ``it`` (a conditional body): the associations at the
     current pose, the step (the degeneracy projection taken at iteration
-    0) and the exit test."""
+    0) and the exit test. ``corner_force_tiled`` pins the corner search to
+    the plain tiled version (LOAM); False sends it where the surf search
+    goes (the 4D builder: the CUDA kernel on the card)."""
     mcfg = cfg.mapping
     corner_db, corner_db_mask, surf_db, surf_db_mask = v["map_db"]
     corner_stack, corner_stack_mask, surf_stack, surf_stack_mask = v["map_stacks"]
@@ -173,9 +182,10 @@ def _gn_iteration(v, cfg: LioConfig, it: int, yaw_constrained: bool):
     new = {}
 
     # corner rows: 5-NN line fit, the search pinned to the plain version
+    # unless the caller lets it take the kernel
     c_sel = pose.apply(corner_stack)
     c_d, c_idx = KNN.knn(c_sel, corner_stack_mask, corner_db, corner_db_mask, k=5,
-                         prune_beyond=mcfg.min_match_sq_dis, force_tiled=True)
+                         prune_beyond=mcfg.min_match_sq_dis, force_tiled=corner_force_tiled)
     c_ok = c_d[:, 4] < mcfg.min_match_sq_dis
     centroid, direction, line_ok = line_fit(corner_db[c_idx.to(torch.int64)], c_ok)
     ld2, c_n = point_to_line_residual(c_sel, centroid, direction)
@@ -253,7 +263,8 @@ def mapping_step(state: MappingState, corner_cloud: Cloud, surf_cloud: Cloud,
 
 
 def mapping_program(run, v: dict, cfg: LioConfig, *, predict=associate_to_map,
-                    yaw_constrained: bool = False) -> Tuple[MappingState, dict]:
+                    yaw_constrained: bool = False,
+                    corner_force_tiled: bool = True) -> Tuple[MappingState, dict]:
     """A scan-to-map step as stretches and conditional bodies
     (``estimator.step_program``'s protocol): the prediction (``predict``:
     (state, odometry pose) -> pose to be mapped), the stacks' downsample,
@@ -262,10 +273,11 @@ def mapping_program(run, v: dict, cfg: LioConfig, *, predict=associate_to_map,
     select at ``mapping_step``) and the map insert. ``v`` holds ``map``
     (the state), ``corner_cloud``, ``surf_cloud`` and ``odom_pose``; leaves
     ``map`` the new state and ``map_out`` the outputs, and returns both.
-    ``yaw_constrained`` and ``models/map_builder.py``'s ``predict`` make
-    it the 4D builder's step."""
+    ``yaw_constrained``, ``corner_force_tiled=False`` (the corner search
+    on the kernel) and ``models/map_builder.py``'s ``predict`` make it the
+    4D builder's step."""
     run.stretch(("map", "head"), lambda v: _map_head(v, cfg, predict), v)
-    gn_bodies(run, v, cfg, yaw_constrained)
+    gn_bodies(run, v, cfg, yaw_constrained, corner_force_tiled)
     run.stretch(("map", "tail"), lambda v: _map_tail(v, cfg), v)
     return v["map"], v["map_out"]
 

@@ -12,7 +12,9 @@ counters) adds them, and :func:`count` settles before it answers.
 
 ``LISTENERS`` are told of each counted launch or search as
 ``(kind, shape, stack)``: ``stack`` the code objects of the frames that
-made it (``tools/profiling.py`` attributes launches to paths with them).
+made it (``tools/profiling.py`` attributes launches to paths with them, and
+so does the tracer while it is on: ``utils/timing.Tracer.heard``, which
+``cli run --timing`` prints by path, kind and shape).
 """
 
 from __future__ import annotations

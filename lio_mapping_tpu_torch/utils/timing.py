@@ -38,6 +38,13 @@ captured and no ``record_function`` runs. It keeps everything in memory;
   line through the first and the last such calibration (``drift_ppm``:
   its slope, less one). Device intervals then lie on the axis of the host
   spans and of the profiler's events.
+* *Launches* (:meth:`Tracer.heard`, an ``ops/launches.py`` listener while
+  the tracer is on): every counted launch of a hand-written kernel and
+  every KNN search, kernel or plain (``ops/knn_kernel.note_search``), by
+  program path (:data:`LAUNCH_PATHS`: the first of their functions on the
+  stack that made it), kind and shape; those inside a graph's replays and
+  its conditional bodies included (the bodies' settled at
+  :meth:`Tracer.collect`).
 
 ``StageTimer`` is the reference's ``TicToc`` stopwatch per named stage (a
 host span of the tracer too, when it is on). ``report`` prints what a
@@ -61,12 +68,22 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..ops import launches as LC
+
 #: the process's tracer, or None when tracing is off
 TRACER: Optional["Tracer"] = None
 #: entries of the device ring of stamps (a power of two)
 RING_ENTRIES = 1 << 18
 #: the tag of a calibration stamp
 CAL_TAG = 0
+#: the program paths a launch is filed under: (path, module of
+#: ``lio_mapping_tpu_torch.models``, function); the first whose function is
+#: on the launch's stack, else "other" (the builder's step runs
+#: ``mapping_program`` too, so it comes before LOAM's)
+LAUNCH_PATHS = (("builder", "map_builder", "map_builder_program"),
+                ("loam_map", "mapping", "mapping_program"),
+                ("odometry", "odometry", "odometry_program"),
+                ("estimator", "estimator", "step_program"))
 
 _TAGS: Dict[tuple, int] = {("", "calibration", "at"): CAL_TAG}
 _TAG_LIST: List[tuple] = [("", "calibration", "at")]
@@ -94,7 +111,10 @@ def enable(device=None) -> "Tracer":
     global TRACER
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
+    disable()
     TRACER = Tracer(device)
+    LC.settle()  # earlier graphs' bodies are not this tracer's
+    LC.LISTENERS.append(TRACER.heard)
     return TRACER
 
 
@@ -111,6 +131,8 @@ def disable():
     """Switch the tracer off (graphs captured while it was on keep stamping
     into the ring; a later tracer reads only its own stamps)."""
     global TRACER
+    if TRACER is not None and TRACER.heard in LC.LISTENERS:
+        LC.LISTENERS.remove(TRACER.heard)
     TRACER = None
 
 
@@ -134,6 +156,18 @@ def tag(graph: str, stage: str, edge: str = "at") -> int:
             if t == len(_TAG_LIST):
                 _TAG_LIST.append(key)
     return t
+
+
+def _launch_paths() -> tuple:
+    """(path, code object) of each of :data:`LAUNCH_PATHS`."""
+    import importlib
+    import inspect
+
+    out = []
+    for path, mod, fn in LAUNCH_PATHS:
+        m = importlib.import_module(f"..models.{mod}", __package__)
+        out.append((path, inspect.unwrap(getattr(m, fn)).__code__))
+    return tuple(out)
 
 
 def _stamp_lib():
@@ -194,6 +228,8 @@ class Tracer:
         self.graphs: List[tuple] = []   # (graph, body names, device counters) per capture
         self._host: List[tuple] = []    # the CPU's stamps: (tag, ns)
         self._cal: List[tuple] = []     # (host ns, device ns, bracket ns)
+        self.launches: Dict[tuple, int] = defaultdict(int)  # (path, kind, shape) -> count
+        self._paths = None              # _launch_paths(), at the first launch
         if self.on_card:
             self._count, self._tags, self._ns = _ring(dev.index)
             self._ptrs = (self._count.data_ptr(), self._tags.data_ptr(), self._ns.data_ptr())
@@ -274,6 +310,18 @@ class Tracer:
         return ((h1 - h0) / (d1 - d0) - 1.0) * 1e6 if d1 != d0 else 0.0
 
     # -- counters -------------------------------------------------------------
+    def heard(self, kind: str, shape: str, stack):
+        """One counted launch or KNN search (``ops/launches.py``'s
+        listener protocol), filed by program path, kind and shape."""
+        if self._paths is None:
+            self._paths = _launch_paths()
+        path = "other"
+        for name, code in self._paths:
+            if code in stack:
+                path = name
+                break
+        self.launches[(path, kind, shape)] += 1
+
     def runner(self, by_key: dict):
         """Register a graph runner's per-key counts."""
         self.runners.append(by_key)
@@ -310,8 +358,12 @@ class Tracer:
         * ``tags``: ``graph``, ``stage``, ``edge`` by tag;
         * ``graphs``: captures, replays and capture seconds per ``key``;
         * ``bodies``: each conditional body's runs (its device counter);
+        * ``launches``: counted launches and KNN searches by ``path``,
+          ``kind`` ("kernel", "plain", "eigh", "solve") and ``shape``
+          (``count``), a capture's warm-up included;
         * ``clock``: the calibrations (host ns, device ns, bracket ns), the
           drift, the stamps lost to the ring's overflow."""
+        LC.settle()  # the launches the device counted in conditional bodies
         self.calibrate()
         tags, dev_ns, lost = self._stamps()
         host_ns = self.to_host_ns(dev_ns)
@@ -344,6 +396,7 @@ class Tracer:
             body_n += list(names)
             body_runs += counts
         table = list(_TAG_LIST)
+        launched = sorted(self.launches.items())
         cols = list(zip(*rows)) if rows else [()] * 8
         return {
             "spans": {"name": np.asarray(cols[0], dtype=object),
@@ -366,6 +419,10 @@ class Tracer:
             "bodies": {"graph": np.asarray(body_g, dtype=object),
                        "body": np.asarray(body_n, dtype=object),
                        "runs": np.asarray(body_runs, np.int64)},
+            "launches": {"path": np.asarray([k[0] for k, _ in launched], dtype=object),
+                         "kind": np.asarray([k[1] for k, _ in launched], dtype=object),
+                         "shape": np.asarray([k[2] for k, _ in launched], dtype=object),
+                         "count": np.asarray([n for _, n in launched], np.int64)},
             "clock": {"calibrations": np.asarray(self._cal, np.int64).reshape(-1, 3),
                       "drift_ppm": self.drift_ppm(), "lost": int(lost),
                       "on_card": self.on_card},
@@ -429,8 +486,9 @@ def device_parts(rec: dict) -> Dict[str, Dict[str, List[float]]]:
 def report(rec: dict) -> str:
     """What ``cli run --timing`` prints of a tracer's records: host ms per
     span (by name and note), device ms per graph part (mean over the
-    graph's runs), captures and replays per key, bytes staged a sweep, and
-    the clock."""
+    graph's runs), captures and replays per key, launches and KNN searches
+    by path, kind and shape (in all, and a builder step for the builder's,
+    a sweep for the others'), bytes staged a sweep, and the clock."""
     sp = rec["spans"]
     rows = [f"{'host span':<36}{'count':>7}{'mean ms':>10}{'max ms':>10}{'total ms':>11}"]
     host = defaultdict(list)
@@ -457,6 +515,14 @@ def report(rec: dict) -> str:
         rows.append("conditional bodies run (device counters): " + ", ".join(
             f"{k} {v}" for k, v in sorted(runs.items())))
     sweeps = len(set(sp["sweep"][sp["name"] == "process"].tolist()))
+    steps = int(np.sum((sp["name"] == "builder") & (sp["parent"] == -1)))
+    la = rec["launches"]
+    if len(la["count"]):
+        rows.append(f"{'launches (path kind shape)':<48}{'count':>9}{'a step':>10}")
+        for path, kind, shape, n in zip(la["path"], la["kind"], la["shape"], la["count"]):
+            per = steps if path == "builder" else sweeps
+            rows.append(f"{(path + ' ' + kind + ' ' + shape)[:47]:<48}{n:>9d}"
+                        + (f"{n / per:>10.3f}" if per else f"{'-':>10}"))
     staged = int(sp["bytes"][sp["name"] == "stage"].sum())
     rows.append(f"staged to the device: {staged} bytes over {sweeps} sweeps"
                 + (f", {staged / sweeps:.0f} a sweep" if sweeps else ""))

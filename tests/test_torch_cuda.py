@@ -19,6 +19,7 @@ are compared tie-robustly through the chosen points' float64 distances,
 and gate decisions away from the gate's rounding band.
 """
 
+import contextlib
 import os
 import sys
 
@@ -312,6 +313,14 @@ def test_kernel_at_the_scan_to_map_shape(dev):
 
 
 @pytest.mark.cuda
+def test_kernel_at_the_builder_corner_shape(dev):
+    """The 4D builder's corner search: the indoor corner stack (2048 rows,
+    ~2000 valid) against the 65536-row corner store, ~11.5k rows valid (8
+    query blocks, 32 chunks)."""
+    assert _check_gated_at(dev, np.random.default_rng(16), 2048, 65536, 2000, 11500) == (8, 32)
+
+
+@pytest.mark.cuda
 def test_kernel_at_the_outdoor64_estimator_shape(dev):
     """The outdoor_64 estimator's surf search: 8192 queries (one HDL-64
     stack) against the 32768-row filtered local map (32 query blocks, 16
@@ -564,6 +573,27 @@ def test_graphed_bootstrap_sweeps_make_no_host_sync(dev):
         assert torch.equal(og["surf_cloud"].xyz, oe["surf_cloud"].xyz)
 
 
+@contextlib.contextmanager
+def _searches(out: dict):
+    """Every KNN search counted inside the block, kernel and plain, into
+    ``out[(kind, shape)]``; the searches of conditional bodies that ran on
+    the device are settled as the block ends (and those of earlier graphs'
+    bodies before it starts, which would be counted in it otherwise)."""
+    from lio_mapping_tpu_torch.ops import launches as LC
+
+    def listen(kind, shape, stack):
+        if kind in ("kernel", "plain"):
+            out[(kind, shape)] = out.get((kind, shape), 0) + 1
+
+    LC.settle()
+    LC.LISTENERS.append(listen)
+    try:
+        yield out
+    finally:
+        LC.settle()
+        LC.LISTENERS.remove(listen)
+
+
 def _loam_cfg():
     """The small config with a narrow LOAM map store and stacks."""
     import dataclasses
@@ -609,33 +639,76 @@ def test_graphed_loam_equals_eager_and_makes_no_host_sync(dev):
 
 
 @pytest.mark.cuda
+def test_graphed_loam_corner_search_stays_plain(dev):
+    """LOAM's scan-to-map corner search stays on the plain tiled version
+    in the graphed pipeline (its surf search takes the kernel): every
+    mapped GN body makes one plain corner search and one kernel surf
+    search, and no kernel search has the corner shape."""
+    from lio_mapping_tpu_torch.models.pipeline import LoamPipeline
+
+    cfg = _loam_cfg()
+    e, cap = cfg.estimator, cfg.mapping.map_cloud_cap
+    corner, surf = f"{e.corner_stack_cap}x{cap}x5", f"{e.surf_stack_cap}x{cap}x5"
+    pipe = LoamPipeline(cfg, device="cuda")
+    counts = {}
+    with _searches(counts):
+        for xyz, mask, _ in _graph_sweeps(cfg)[:8]:
+            pipe.process(xyz, mask)
+        torch.cuda.synchronize()
+    assert pipe.graphs and pipe.graph_captures() == 2
+    assert counts.get(("plain", corner), 0) == counts.get(("kernel", surf), 0) > 0
+    assert ("kernel", corner) not in counts and ("plain", surf) not in counts
+
+
+@pytest.mark.cuda
 def test_graphed_map_builder_equals_eager(graph_runs):
     """``MapBuilder`` graphed against ``graphs=False`` on the consumed
     INITED sweeps' outputs of the graphed pipeline: poses and final state
-    bit for bit; steps after the capture make no host sync."""
+    bit for bit; steps after the capture make no host sync. Both builders'
+    searches, corner and surf, take the kernel and none the plain
+    version; after the capture (whose warm-up runs every GN body once) a
+    graphed step makes the eager step's searches, one corner and one surf
+    search a GN body that ran. The builder's corner stack is narrowed to
+    1024 rows, so that its two searches differ in shape."""
+    import dataclasses
+
     from lio_mapping_tpu_torch.models.map_builder import MapBuilder
     from lio_mapping_tpu_torch.utils.tree import tree_leaves, tree_map
 
     outs = [o for o in graph_runs[True]["outs"] if o["stage"] == "INITED" and "body_pose" in o]
     cfg = graph_runs[True]["pipe"].cfg
+    cfg = dataclasses.replace(cfg, estimator=dataclasses.replace(cfg.estimator,
+                                                                 corner_stack_cap=1024))
+    e, cap = cfg.estimator, cfg.mapping.map_cloud_cap
+    corner, surf = f"{e.corner_stack_cap}x{cap}x5", f"{e.surf_stack_cap}x{cap}x5"
+    assert corner != surf
     builders = [MapBuilder(cfg, "cuda"), MapBuilder(cfg, "cuda", graphs=False)]
     assert builders[0].graphs and not builders[1].graphs
-    poses = [[], []]
+    poses, searches = [[], []], [[], []]
     for k, o in enumerate(outs):
         o = tree_map(lambda t: t.cuda() if torch.is_tensor(t) else t, o)
-        for b, ps in zip(builders, poses):
+        for b, ps, ss in zip(builders, poses, searches):
             torch.cuda.synchronize()
-            if b.graphs and k >= 1:
-                torch.cuda.set_sync_debug_mode("error")
-            try:
-                ps.append(b.step(o["corner_cloud"], o["surf_cloud"], o["laser_pose"])["pose"])
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
+            with _searches({}) as counts:
+                if b.graphs and k >= 1:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    ps.append(b.step(o["corner_cloud"], o["surf_cloud"],
+                                     o["laser_pose"])["pose"])
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            ss.append(counts)
     assert len(outs) >= 3 and builders[0].graph_captures() == 1
     for a, b in zip(*poses):
         assert torch.equal(a.q, b.q) and torch.equal(a.t, b.t)
     for a, b in zip(tree_leaves(builders[0].state), tree_leaves(builders[1].state)):
         assert torch.equal(a, b)
+    for ss in searches:
+        assert set().union(*ss) == {("kernel", corner), ("kernel", surf)}
+    assert searches[0][1:] == searches[1][1:]
+    for counts in searches[1]:
+        assert counts.get(("kernel", corner), 0) == counts.get(("kernel", surf), 0)
+    assert sum(c.get(("kernel", corner), 0) for c in searches[1][1:]) > 0
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The port's LOAM back end against the reference package on the same
 inputs, made from a seed: the wide (13-bit) voxel keys and filter,
 ``insert_into_map``, ``optimize_to_map`` (plain and ``yaw_constrained``)
-and ``LoamPipeline`` over a few sweeps.
+and ``LoamPipeline`` over a few sweeps; and which KNN each scan-to-map
+search asks for, in a 4D builder step and in a LOAM mapping step.
 
 Tolerances: voxel keys, their sort order and the filter's output mask are
 equal bit for bit (float32, +-800 m extents); centroids agree within 1e-6
@@ -22,9 +23,12 @@ from lio_mapping_tpu.models import mapping as JM
 from lio_mapping_tpu.models.pipeline import LoamPipeline as JLoam
 from lio_mapping_tpu.ops import voxel as JV
 from lio_mapping_tpu.utils.se3 import Pose as JPose
+from lio_mapping_tpu_torch.models import map_builder as TMB
 from lio_mapping_tpu_torch.models import mapping as TM
 from lio_mapping_tpu_torch.models.pipeline import LoamPipeline as TLoam
+from lio_mapping_tpu_torch.ops import knn as TK
 from lio_mapping_tpu_torch.ops import voxel as TV
+from lio_mapping_tpu_torch.ops.cloud import Cloud as TCloud
 from lio_mapping_tpu_torch.utils.se3 import Pose as TPose
 
 from tests.test_torch_pipeline import cold_cfg, port_cfg
@@ -192,3 +196,53 @@ def test_loam_pipeline_matches_over_a_few_sweeps():
     np.testing.assert_array_equal(_np(pt.map_state.surf_map.mask),
                                   np.asarray(pj.map_state.surf_map.mask))
     assert bool(pt.map_state.initialized)
+
+
+@pytest.mark.parametrize("step", ["builder", "loam"])
+def test_scan_to_map_searches_ask_for_their_knn(step, monkeypatch):
+    """Every ``ops.knn.knn`` call of one scan-to-map step, recorded with its
+    keywords: in a 4D builder step (``map_builder_step``) the corner search
+    comes without ``force_tiled`` (the kernel on the card), in a LOAM
+    mapping step (``mapping_step``) with it (the plain tiled version);
+    both with the 1 m^2 match gate, as both surf searches are."""
+    cfg = port_cfg(loam_cfg())
+    m = cfg.mapping
+    traj = JSYN.Trajectory()
+    world = []
+    for i in range(3):
+        pts, rot, p = _sweep_world(traj, 0.1 * i)
+        world.append(rot.apply(pts) + p)
+    world = torch.as_tensor(np.concatenate(world))
+    every = torch.ones(len(world), dtype=torch.bool)
+    ident = TPose.identity(dtype=F64)
+    maps = [TM.insert_into_map(TM.VoxelMapStore.empty(m.map_cloud_cap, F64), world, every,
+                               ident, leaf, cfg)
+            for leaf in (m.corner_filter_size, m.surf_filter_size)]
+    state = TM.MappingState(corner_map=maps[0], surf_map=maps[1], pose=ident, pose_bef=ident,
+                            initialized=torch.tensor(True))
+    pts, rot, p = _sweep_world(traj, 0.35)
+    n = len(pts)
+    cloud = TCloud(torch.as_tensor(pts, dtype=F64), torch.zeros(n, dtype=F64),
+                   torch.zeros(n, dtype=torch.int32), torch.ones(n, dtype=torch.bool))
+    odom = TPose(torch.as_tensor(np.roll(rot.as_quat(), 1), dtype=F64),
+                 torch.as_tensor(p + [0.03, -0.02, 0.01], dtype=F64))
+
+    calls = []
+    orig = TK.knn
+
+    def record(queries, q_mask, db, db_mask, **kw):
+        calls.append((db.data_ptr(), dict(kw)))
+        return orig(queries, q_mask, db, db_mask, **kw)
+
+    monkeypatch.setattr(TK, "knn", record)
+    run = TMB.map_builder_step if step == "builder" else TM.mapping_step
+    run(state, cloud, cloud, odom, cfg)
+
+    corner = [kw for ptr, kw in calls if ptr == maps[0].xyz.data_ptr()]
+    surf = [kw for ptr, kw in calls if ptr == maps[1].xyz.data_ptr()]
+    assert len(corner) == len(surf) >= 2 and len(corner) + len(surf) == len(calls)
+    gate = m.min_match_sq_dis
+    assert all(kw == {"k": 5, "prune_beyond": gate} for kw in surf)
+    for kw in corner:
+        assert kw["k"] == 5 and kw["prune_beyond"] == gate
+        assert kw.get("force_tiled", False) is (step == "loam")

@@ -8,8 +8,9 @@ the host clock, so that the whole bookkeeping runs under the tests.
     its id, the calls' device stamps bracket their graphs, the consumed
     key has its ``front`` boundary, the LM bodies stamped in a consumed
     sweep are its ``solver_iterations`` - 1, the builder's ``map`` bodies
-    are the iterations its GN ran, and captures and replays per key add
-    up to ``stats``.
+    are the iterations its GN ran, captures and replays per key add up to
+    ``stats``, and the KNN searches filed by path, kind and shape number
+    the bodies that made them.
 (b) The tracer alone: spans, stamps, the clock's line, tags, the
     ``lio.`` ranges of ``cli run --trace-dir``'s trace, ``StageTimer``,
     ``LIO_TRACE``; and with the tracer off nothing is built.
@@ -264,6 +265,29 @@ def test_loam_graphs_carry_odometry_and_mapping_stamps(traced):
     assoc = next(k for k in parts if k.startswith("loam_assoc."))
     assert {"odo.head->front", "odo.<body>", "map.<body>"} <= set(parts[mapped])
     assert "odo.<body>" in parts[assoc] and not any("map." in p for p in parts[assoc])
+
+
+def test_searches_by_path_number_the_bodies_that_made_them(traced):
+    """The tracer's launches by path, kind and shape: on the CPU every KNN
+    search is plain; the builder's corner and surf searches each number
+    the GN bodies its steps ran (the traced runner's and the eager
+    program's, which ran the same bodies), and the estimator's, the
+    odometry's and LOAM's searches are filed under their own paths."""
+    rec, _, runners, counts = traced[:4]
+    la = rec["launches"]
+    rows = list(zip(la["path"], la["kind"], la["shape"], la["count"].tolist()))
+    assert {k for _, k, _, _ in rows} == {"plain"}
+    assert {"builder", "loam_map", "odometry", "estimator"} <= {p for p, _, _, _ in rows}
+    cfg = runners["builder"].cfg
+    cap, e = cfg.mapping.map_cloud_cap, cfg.estimator
+    want = {}
+    for q in (e.corner_stack_cap, e.surf_stack_cap):
+        shape = f"{q}x{cap}x5"
+        want[shape] = want.get(shape, 0) + 2 * sum(counts)
+    assert {s: n for p, _, s, n in rows if p == "builder"} == want
+    assert sum(counts) > 0
+    text = TM.report(rec)
+    assert f"builder plain {e.corner_stack_cap}x{cap}x5" in text
 
 
 def test_report_reads_every_key(traced):
